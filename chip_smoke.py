@@ -1,0 +1,338 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (``pydreamer_tpu_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero; nothing is caught to carry on):
+
+1. Build kernel K1 (``ops/csrc/gru_dv2.cu``, nvcc for sm_90a) and print the
+   card's name and power limit as nvidia-smi reports them.
+2. Hold K1 against its plain PyTorch version: forward max-abs error and the
+   gradients of all six inputs, at both main-path shapes (M=32 and M=1536
+   rows, in=1000, H=1024, bf16 operands) and at small ragged shapes that
+   exercise the tile bounds. Time the kernel and the plain version.
+3. Check the train step's forward at full width with the K1 cell against the
+   unfused ``gru_layernorm_dv2_xla`` cell (same weights, same noise).
+4. Drive the main path: the flagship Dreamer/Atari train step
+   (T=48, B=32, deter 1024, stoch 32x32, hidden 1000, cnn_depth 48, H=15,
+   bf16 compute, uint8 images, gru_type gru_layernorm_dv2) from random
+   weights made from a seed: 2 warm-up and 5 timed TrainStep calls. The K1
+   launch counter is set to 0 just before and read just after; it must have
+   grown by exactly steps * (T + H).
+5. Profile one more step with torch.profiler: K1's kernel names, device time
+   and launches, and the device's busy share of the step.
+6. Time the train step with the K1 cell against the unfused cell, in turns
+   (unfused, K1, K1, unfused; 5 steps per window).
+
+Prints one JSON line of per-kernel numbers, then the nvidia-smi line, then
+as the last line ``{"ok": true, "device": {...}}``. Details go to
+``chiprun_out/chip_smoke.json`` and ``chiprun_out/chip_smoke_profile.txt``.
+This script imports nothing of JAX or of the JAX package; the flagship
+config below is its own copy.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
+
+# Flagship Dreamer/Atari config (config/defaults.yaml `defaults` + `atari`),
+# with the DreamerV2 late-reset GRU cell so the train step runs kernel K1.
+FLAGSHIP = dict(
+    image_key="image", image_size=64, image_channels=3, image_categorical=False,
+    action_dim=18, clip_rewards="tanh", vecobs_size=0,
+    map_key=None, map_size=0, map_channels=0, map_categorical=True, goals_size=0,
+    model="dreamer", deter_dim=1024, stoch_dim=32, stoch_discrete=32, hidden_dim=1000,
+    gru_layers=1, gru_type="gru_layernorm_dv2", layer_norm=True,
+    image_encoder="cnn", cnn_depth=48, image_encoder_layers=0,
+    image_decoder="cnn", image_decoder_layers=0, image_decoder_min_prob=0.0,
+    reward_input=False, reward_decoder_layers=4,
+    reward_decoder_categorical=None, terminal_decoder_layers=4,
+    probe_model="none", probe_gradients=False,
+    iwae_samples=1, kl_balance=0.8, kl_weight=0.1,
+    image_weight=1.0, vecobs_weight=1.0, reward_weight=1.0, terminal_weight=1.0,
+    adam_lr=3e-4, adam_lr_actor=1e-4, adam_lr_critic=1e-4, adam_eps=1e-5,
+    keep_state=True, batch_length=48, batch_size=32,
+    grad_clip=200.0, grad_clip_ac=200.0, precision="bfloat16",
+    gamma=0.99, lambda_gae=0.95, entropy=1e-3, target_interval=100,
+    imag_horizon=15, actor_grad="reinforce", actor_dist="onehot",
+    aux_critic=False, aux_critic_weight=1.0, gamma_aux=0.99,
+    lambda_gae_aux=0.95, target_interval_aux=1000,
+)
+
+# Dense peak rates from NVIDIA's data sheets: (bytes/s, bf16 tensor FLOP/s,
+# fp32 non-tensor FLOP/s), at the card's full power limit.
+PEAKS = {
+    "H100 PCIe": (2.0e12, 756e12, 51e12),
+    "H100 NVL": (3.9e12, 835e12, 60e12),
+    "H100": (3.35e12, 989e12, 67e12),  # SXM5 (nvidia-smi: "NVIDIA H100 80GB HBM3")
+}
+
+FWD_TOL = 2e-3    # max-abs on h' (|h'| <= ~1): f32 sums in another order, amplified by LayerNorm
+GRAD_TOL = 1e-3   # relative to each gradient's max-abs: backward is the same plain recompute
+LOSS_RTOL = 2e-2  # fused vs unfused cell in bf16 over a 48-step loop and a 15-step dream
+
+K1_SOURCE = "pydreamer_tpu_torch/ops/csrc/gru_dv2.cu"
+K1_REPLACES = "pydreamer_tpu/ops/gru_pallas.py:78"
+
+
+def peaks_for(name: str):
+    for key, peaks in PEAKS.items():
+        if key in name:
+            return key, peaks
+    raise RuntimeError(f"no peak rates known for card {name!r}")
+
+
+def k1_bound_ms(M: int, In: int, H: int, peaks) -> tuple[float, str]:
+    """Least time for one K1 step: each input read once, the output written once;
+    the two products at the bf16 tensor rate, LayerNorm and gates at fp32."""
+    bw, bf16_rate, f32_rate = peaks
+    nbytes = 2 * (M * In + M * H + In * 3 * H + H * 3 * H) + 4 * (2 * 3 * H) + 4 * M * H
+    t_bytes = nbytes / bw
+    t_ops = 2 * M * (In + H) * 3 * H / bf16_rate + M * (8 * 3 * H + 10 * H) / f32_rate
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_ms(torch, fn, iters: int, flush=None) -> float:
+    """Device time per call by CUDA events; with ``flush``, the flush's own time
+    (run alone) is subtracted so each call finds a cold L2."""
+    def run(body):
+        for _ in range(3):
+            body()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            body()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters
+
+    if flush is None:
+        return run(fn)
+    return run(lambda: (flush(), fn())) - run(flush)
+
+
+def k1_inputs(torch, M, In, H, gen, device):
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=device)
+    return (randn(M, In).bfloat16(), torch.tanh(randn(M, H)).bfloat16(),
+            (0.03 * randn(In, 3 * H)).bfloat16(), (0.03 * randn(H, 3 * H)).bfloat16(),
+            1.0 + 0.1 * randn(3 * H), 0.1 * randn(3 * H))
+
+
+def check_k1(torch, k1, M, In, H, gen, device, timed: bool, peaks):
+    ins = k1_inputs(torch, M, In, H, gen, device)
+    out_k = k1.gru_dv2_cuda(*ins)
+    out_p = k1.gru_dv2_reference(*ins)
+    torch.cuda.synchronize()
+    fwd_err = (out_k - out_p).abs().max().item()
+    if not math.isfinite(fwd_err) or fwd_err > FWD_TOL:
+        raise AssertionError(f"K1 M={M} In={In} H={H}: forward max-abs err {fwd_err} > {FWD_TOL}")
+
+    proj = torch.randn(M, H, generator=gen, device=device)
+    leaves_k = [t.clone().requires_grad_() for t in ins]
+    (k1.GRUDv2Function.apply(*leaves_k) * proj).sum().backward()
+    leaves_p = [t.clone().requires_grad_() for t in ins]
+    (k1.gru_dv2_reference(*leaves_p) * proj).sum().backward()
+    grad_errs = {}
+    for name, a, b in zip(("x", "h", "w_ih", "w_hh", "scale", "bias"), leaves_k, leaves_p):
+        err = ((a.grad.float() - b.grad.float()).abs().max() / b.grad.float().abs().max()).item()
+        grad_errs[name] = err
+        if not math.isfinite(err) or err > GRAD_TOL:
+            raise AssertionError(f"K1 M={M}: grad {name} rel err {err} > {GRAD_TOL}")
+    result = dict(M=M, In=In, H=H, max_abs_err=fwd_err, grad_rel_err=grad_errs)
+    if timed:
+        flush_buf = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device=device)  # 128 MB > L2
+        flush = flush_buf.zero_
+        iters = 50
+        result["ms"] = time_ms(torch, lambda: k1.gru_dv2_cuda(*ins), iters, flush)
+        result["ms_l2_warm"] = time_ms(torch, lambda: k1.gru_dv2_cuda(*ins), iters)
+        result["plain_ms"] = time_ms(torch, lambda: k1.gru_dv2_reference(*ins), iters, flush)
+        result["bound_ms"], result["bound_by"] = k1_bound_ms(M, In, H, peaks)
+    return result
+
+
+def timed_steps(torch, ts, obs, state, step: int, n: int):
+    """Run n TrainStep calls from ``step + 1``; host-clock ms per step, synchronized."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        state, metrics, _ = ts(obs, state, step + 1 + i)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3, state, metrics
+
+
+def make_obs(torch, conf, gen, device):
+    T, B, A = conf.batch_length, conf.batch_size, conf.action_dim
+    reset = torch.zeros(T, B, dtype=torch.bool, device=device)
+    reset[0] = True
+    action_idx = torch.randint(0, A, (T, B), generator=gen, device=device)
+    return dict(
+        action=torch.nn.functional.one_hot(action_idx, A).float(),
+        reward=torch.rand(T, B, generator=gen, device=device),
+        terminal=torch.zeros(T, B, device=device),
+        reset=reset,
+        image=torch.randint(0, 256, (T, B, conf.image_size, conf.image_size, conf.image_channels),
+                            generator=gen, device=device, dtype=torch.uint8),
+    )
+
+
+def on_device(event) -> bool:
+    """A kernel (or memcpy/memset) event, as opposed to the CPU op that launched it."""
+    return str(event.device_type).endswith("CUDA")
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; it needs a CUDA card",
+              file=sys.stderr)
+        return 1
+    from pydreamer_tpu_torch.conf import Conf
+    from pydreamer_tpu_torch.models.dreamer import Dreamer
+    from pydreamer_tpu_torch.models.noise import GeneratorNoise
+    from pydreamer_tpu_torch.ops import gru_dv2 as k1
+    from pydreamer_tpu_torch.training.train_step import TrainStep
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version runs full f32
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda:0")
+    OUT_DIR.mkdir(exist_ok=True)
+    report = {}
+
+    # 1. Build K1; the card's name and power limit.
+    t0 = time.time()
+    lib_path = k1.build()
+    report["build_s"] = time.time() - t0
+    ptxas = [ln for ln in lib_path.with_suffix(".log").read_text().splitlines()
+             if "registers" in ln or "spill" in ln or "smem" in ln]
+    print(f"[1] built {lib_path.name} in {report['build_s']:.1f} s", *ptxas, sep="\n    ")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    name = torch.cuda.get_device_name(0)
+    peak_key, peaks = peaks_for(name)
+    report.update(card=name, nvidia_smi=smi, peaks_of=peak_key, torch=torch.__version__,
+                  cuda=torch.version.cuda)
+    print(f"    card {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
+
+    # 2. K1 against its plain version.
+    conf = Conf(FLAGSHIP)
+    T, B, H_imag = conf.batch_length, conf.batch_size, conf.imag_horizon
+    In, H = conf.hidden_dim, conf.deter_dim
+    gen = torch.Generator(device=device).manual_seed(0)
+    report["k1"] = {}
+    for M in (B, T * B):
+        res = check_k1(torch, k1, M, In, H, gen, device, True, peaks)
+        report["k1"][M] = res
+        print(f"[2] K1 M={M}: max_abs_err {res['max_abs_err']:.3e}, grads ok, "
+              f"{res['ms']:.4f} ms (L2 warm {res['ms_l2_warm']:.4f}), plain {res['plain_ms']:.4f} ms, "
+              f"bound {res['bound_ms']:.4f} ms ({res['bound_by']})")
+    for M, In_s, H_s in ((5, 37, 50), (70, 129, 67), (1, 8, 16)):
+        res = check_k1(torch, k1, M, In_s, H_s, gen, device, False, peaks)
+        print(f"[2] K1 ragged M={M} In={In_s} H={H_s}: max_abs_err {res['max_abs_err']:.3e}, grads ok")
+
+    # 3. Fused vs unfused cell through the full-width forward.
+    torch.manual_seed(0)
+    model = Dreamer(conf, device=device)
+    obs = make_obs(torch, conf, gen, device)
+    xla = Dreamer(conf.replace(gru_type="gru_layernorm_dv2_xla"), device=device)
+    sd = {k.replace("cell_0.ln_scale", "cell_0.lnorm.weight").replace("cell_0.ln_bias", "cell_0.lnorm.bias"): v
+          for k, v in model.state_dict().items()}
+    xla.load_state_dict(sd)
+    with torch.no_grad():
+        lf, *_ = model.training_step(obs, model.init_state(B), GeneratorNoise(device, seed=7))
+        lx, *_ = xla.training_step(obs, xla.init_state(B), GeneratorNoise(device, seed=7))
+    cmp = {k: (lf[k].item(), lx[k].item()) for k in lf}
+    report["fused_vs_unfused"] = cmp
+    print("[3] fused vs unfused losses:", {k: f"{a:.5f}/{b:.5f}" for k, (a, b) in cmp.items()})
+    rel = abs(cmp["loss_model"][0] - cmp["loss_model"][1]) / abs(cmp["loss_model"][1])
+    if not rel <= LOSS_RTOL:
+        raise AssertionError(f"fused vs unfused loss_model rel diff {rel} > {LOSS_RTOL}")
+
+    # 4. The main path: full-width TrainStep, 2 warm-up + 5 timed steps.
+    ts = TrainStep(model, conf, device=device)
+    _, state, _ = timed_steps(torch, ts, obs, model.init_state(B), 0, 2)
+    torch.cuda.reset_peak_memory_stats()
+    n_steps = 5
+    k1.LAUNCHES.reset()
+    step_ms, state, metrics = timed_steps(torch, ts, obs, state, 2, n_steps)
+    launches, by_rows = k1.LAUNCHES.count, dict(k1.LAUNCHES.by_rows)
+    step = 2 + n_steps
+    losses = {k: metrics[k].item() for k in ("loss_model", "loss_probe", "loss_actor", "loss_critic")}
+    report.update(step_ms=step_ms, launches=launches, launches_by_rows=by_rows, losses=losses,
+                  metrics={k: v.item() for k, v in metrics.items()},
+                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"[4] train step: {step_ms:.2f} ms/step over {n_steps} steps, losses {losses}, "
+          f"K1 launches {launches} {by_rows}, peak mem {report['peak_mem_gb']:.2f} GB")
+    if not all(math.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"non-finite losses {losses}")
+    want = n_steps * (T + H_imag)
+    if launches != want or by_rows != {B: n_steps * T, T * B: n_steps * H_imag}:
+        raise AssertionError(f"K1 launches {launches} {by_rows}, expected {want}")
+    if tuple(state[0].shape) != (B, H) or not torch.isfinite(state[0]).all():
+        raise AssertionError("out_state h is not finite of shape (B, deter)")
+
+    # 5. Profile one step.
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, metrics, _ = ts(obs, state, step + 1)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    attr = "self_device_time_total"
+    dev_events = [e for e in events if on_device(e)]
+    busy_us = sum(getattr(e, attr) for e in dev_events)
+    k1_events = [e for e in dev_events if "gates_kernel" in e.key or "ln_gate_kernel" in e.key]
+    k1_us = sum(getattr(e, attr) for e in k1_events)
+    k1_rows = [(e.key, e.count, getattr(e, attr)) for e in k1_events]
+    report.update(profile=dict(wall_ms=prof_wall_ms, device_busy_ms=busy_us / 1e3,
+                               k1_kernels=k1_rows, k1_ms=k1_us / 1e3))
+    table = events.table(sort_by=attr, row_limit=30)
+    (OUT_DIR / "chip_smoke_profile.txt").write_text(f"{smi}\n{table}\n")
+    print(f"[5] profiled step: wall {prof_wall_ms:.2f} ms, device busy {busy_us / 1e3:.2f} ms; "
+          f"K1 {k1_us / 1e3:.3f} ms in {k1_rows}")
+    if not k1_rows or any(count != T + H_imag for _, count, _ in k1_rows):
+        raise AssertionError(f"profiler did not see {T + H_imag} launches of each K1 kernel: {k1_rows}")
+    step += 1
+
+    # 6. Step time with the K1 cell against the unfused cell, in turns
+    #    (unfused, K1, K1, unfused), 5 steps per window after 2 warm-up steps.
+    ts_xla = TrainStep(xla, conf, device=device)
+    _, state_xla, _ = timed_steps(torch, ts_xla, obs, xla.init_state(B), 0, 2)
+    windows = {"unfused": [], "k1": []}
+    for variant in ("unfused", "k1", "k1", "unfused"):
+        if variant == "k1":
+            ms, state, _ = timed_steps(torch, ts, obs, state, step, n_steps)
+            step += n_steps
+        else:
+            ms, state_xla, _ = timed_steps(torch, ts_xla, obs, state_xla, 2 + len(windows["unfused"]) * n_steps, n_steps)
+        windows[variant].append(ms)
+    report["step_ms_ab"] = windows
+    print(f"[6] ms/step in turns: K1 cell {windows['k1']}, unfused cell {windows['unfused']}")
+
+    kernels = []
+    for M in (B, T * B):
+        r = report["k1"][M]
+        kernels.append(dict(name=f"gru_dv2[M={M}]", route="cuda", source=K1_SOURCE,
+                            replaces=K1_REPLACES, launches=by_rows.get(M, 0),
+                            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+                            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
+                            ms_l2_warm=r["ms_l2_warm"]))
+    (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

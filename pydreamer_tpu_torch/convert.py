@@ -1,0 +1,119 @@
+"""Convert a JAX params tree (nested dicts of arrays) to the port's state_dict and back.
+
+The port's module names follow the JAX param tree, so a parameter's
+state_dict key is its JAX path with these rules:
+
+* the flax ``params`` collection levels are dropped;
+* the inner flax module of a wrapper (``Dense_0`` inside ``Dense``,
+  ``LayerNorm_0`` inside ``Norm``) is dropped;
+* the top-level ``actor``, ``critic`` and ``critic_target`` live under ``ac``;
+* leaves: Dense ``kernel`` (in,out) -> Linear ``weight`` (out,in); LayerNorm
+  ``scale`` -> ``weight``; Conv ``kernel`` HWIO -> OIHW; ConvTranspose
+  (``deconv_*``) ``kernel`` HWIO -> PyTorch's (in,out,kh,kw) with a spatial
+  flip, because ``lax.conv_transpose`` (``transpose_kernel=False``) correlates
+  the dilated input with the kernel as it is while ``conv_transpose2d``
+  correlates with the flipped kernel. The GRU cells keep JAX's names and
+  (in,3H) layout with r,u,n gate columns: ``weight_ih``, ``weight_hh``,
+  ``bias_ih``/``bias_hh``, ``ln_scale``/``ln_bias`` (kernel cell) and
+  ``lnorm/{scale,bias}`` (``_xla`` cell).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Iterator, Mapping, Tuple
+
+import numpy as np
+import torch
+
+__all__ = ["jax_to_state_dict", "state_dict_to_jax", "torch_key"]
+
+_INNER = ("Dense_0", "LayerNorm_0")
+_UNDER_AC = ("actor", "critic", "critic_target")
+
+
+def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], Any]]:
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _leaves(v, prefix + (str(k),))
+        else:
+            yield prefix + (str(k),), v
+
+
+def _kind(path: Tuple[str, ...], ndim: int) -> str:
+    """How a leaf converts: 'linear', 'conv', 'deconv', 'scale' or 'same'."""
+    leaf = path[-1]
+    if leaf == "kernel":
+        if ndim == 2:
+            return "linear"
+        return "deconv" if path[-2].startswith("deconv_") else "conv"
+    return "scale" if leaf == "scale" else "same"
+
+
+def torch_key(path: Tuple[str, ...], ndim: int) -> str:
+    """state_dict key of the JAX leaf at ``path``."""
+    segs = [s for s in path if s != "params"]
+    if segs[0] in _UNDER_AC:
+        segs = ["ac"] + segs
+    if len(segs) >= 3 and segs[-2] in _INNER:
+        del segs[-2]
+    kind = _kind(tuple(segs), ndim)
+    if kind != "same":
+        segs[-1] = "weight"
+    return ".".join(segs)
+
+
+def _to_torch(kind: str, x: np.ndarray) -> np.ndarray:
+    if kind == "linear":
+        return x.T
+    if kind == "conv":
+        return x.transpose(3, 2, 0, 1)
+    if kind == "deconv":
+        return x.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+    return x
+
+
+def _to_jax(kind: str, x: np.ndarray) -> np.ndarray:
+    if kind == "linear":
+        return x.T
+    if kind == "conv":
+        return x.transpose(2, 3, 1, 0)
+    if kind == "deconv":
+        return x[:, :, ::-1, ::-1].transpose(2, 3, 0, 1)
+    return x
+
+
+def _kind_of(path: Tuple[str, ...], ndim: int) -> str:
+    segs = tuple(s for s in path if s != "params")
+    if len(segs) >= 3 and segs[-2] in _INNER:
+        segs = segs[:-2] + segs[-1:]
+    return _kind(segs, ndim)
+
+
+def jax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX params tree -> the port's state_dict (float32 CPU tensors)."""
+    out = {}
+    for path, leaf in _leaves(params):
+        x = np.asarray(leaf)
+        key = torch_key(path, x.ndim)
+        if key in out:
+            raise ValueError(f"two JAX leaves map to {key!r}")
+        out[key] = torch.from_numpy(np.array(_to_torch(_kind_of(path, x.ndim), x), copy=True))
+    return out
+
+
+def state_dict_to_jax(state_dict: Mapping[str, torch.Tensor], like: Mapping) -> Dict[str, Any]:
+    """The port's state_dict -> a JAX params tree shaped like ``like`` (numpy leaves)."""
+
+    def fill(tree: Mapping, prefix: Tuple[str, ...]) -> Dict[str, Any]:
+        out = {}
+        for k, v in tree.items():
+            path = prefix + (str(k),)
+            if isinstance(v, Mapping):
+                out[k] = fill(v, path)
+                continue
+            ndim = np.ndim(v)
+            x = state_dict[torch_key(path, ndim)].detach().cpu().numpy()
+            out[k] = np.ascontiguousarray(_to_jax(_kind_of(path, ndim), x))
+        return out
+
+    return fill(like, ())

@@ -1,0 +1,73 @@
+"""Structure/shape utilities shared by all models.
+
+Counterparts of ``pydreamer_tpu/models/functions.py:31-122``. Shape
+vocabulary: T = sequence length, B = batch, I = IWAE samples, A = action dim,
+E = embed dim, F = feature dim (deter + stoch), H = imagination horizon,
+M = T*B*I.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Iterable, Tuple
+
+import torch
+
+__all__ = [
+    "flatten_batch", "unflatten_batch", "insert_dim", "expand_iwae",
+    "logavgexp", "nanmean", "global_norm",
+]
+
+
+def flatten_batch(x: torch.Tensor, nonbatch_dims: int = 1) -> Tuple[torch.Tensor, Tuple[int, ...]]:
+    """(b1,b2,...,X) -> (B,X); returns folded tensor and the batch shape."""
+    if nonbatch_dims > 0:
+        batch_dim = tuple(x.shape[:-nonbatch_dims])
+        return x.reshape((-1,) + tuple(x.shape[-nonbatch_dims:])), batch_dim
+    return x.reshape(-1), tuple(x.shape)
+
+
+def unflatten_batch(x: torch.Tensor, batch_dim: Tuple[int, ...]) -> torch.Tensor:
+    """(B,X) -> (b1,b2,...,X)."""
+    return x.reshape(tuple(batch_dim) + tuple(x.shape[1:]))
+
+
+def insert_dim(x: torch.Tensor, dim: int, size: int) -> torch.Tensor:
+    """Insert a broadcast dimension of the given size at `dim`."""
+    x = x.unsqueeze(dim)
+    shape = list(x.shape)
+    shape[dim] = size
+    return x.expand(shape)
+
+
+def expand_iwae(x: torch.Tensor, I: int) -> torch.Tensor:
+    """(T,B,...) -> (T,B*I,...): replicate batch for multi-sample IWAE bound."""
+    if I == 1:
+        return x
+    T, B = x.shape[:2]
+    x = insert_dim(x, 2, I)
+    return x.reshape((T, B * I) + tuple(x.shape[3:]))
+
+
+def logavgexp(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """log(mean(exp(x))) along dim; identity-squeeze when the dim is size 1.
+
+    Computed in float32 for IWAE stability.
+    """
+    if x.shape[dim] > 1:
+        return torch.logsumexp(x.float(), dim=dim) - math.log(x.shape[dim])
+    return x.squeeze(dim)
+
+
+def nanmean(x: torch.Tensor) -> torch.Tensor:
+    """Mean ignoring NaNs (0 when every entry is NaN)."""
+    mask = ~torch.isnan(x)
+    return torch.nansum(x) / mask.sum().clamp(min=1)
+
+
+def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
+    """Global L2 norm of a collection of tensors, in float32."""
+    sq = [t.float().square().sum() for t in tensors if t is not None]
+    if not sq:
+        return torch.zeros(())
+    return torch.stack(sq).sum().sqrt()

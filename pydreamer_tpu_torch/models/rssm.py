@@ -1,0 +1,177 @@
+"""RSSM (Recurrent State-Space Model) core.
+
+Counterpart of ``pydreamer_tpu/models/rssm.py``. The JAX package runs the
+time axis as one ``lax.scan``; here it is a Python loop over T that calls the
+GRU cell (kernel K1 for ``gru_layernorm_dv2``) once per step. Priors are
+computed batched over all T states after the loop (``batch_prior``).
+
+Latent layout: state ``(h, z)`` with h = deterministic GRU state (B,D) and
+z = stochastic sample (B, S*K). Features = concat(h, z).
+
+Reset handling: ``reset[t]`` zeroes the *incoming* state at step t
+(rssm.py:108-116).
+
+Sampling noise comes in as a tensor (standard gumbel for discrete latents,
+standard normal otherwise), never as a key: the posterior loop takes the
+whole (T, B*I, S, K) block, drawn up front by the caller.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from .distributions import OneHotCategorical, diag_normal
+from .functions import expand_iwae
+from .modules import Dense, Norm
+from .rnn import GRUCellStack
+
+__all__ = ["RSSMCell", "RSSMCore", "init_state", "to_feature", "z_noise_shape"]
+
+State = Tuple[torch.Tensor, torch.Tensor]  # (h: (B,D), z: (B,S*K))
+
+
+def init_state(batch_size: int, deter_dim: int, stoch_dim: int, stoch_discrete: int,
+               device: torch.device | str = "cpu") -> State:
+    """Zero (h, z) state."""
+    return (
+        torch.zeros((batch_size, deter_dim), dtype=torch.float32, device=device),
+        torch.zeros((batch_size, stoch_dim * (stoch_discrete or 1)), dtype=torch.float32,
+                    device=device),
+    )
+
+
+def to_feature(h: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    return torch.cat([h, z], -1)
+
+
+def z_noise_shape(prefix: Tuple[int, ...], stoch_dim: int, stoch_discrete: int) -> Tuple[int, ...]:
+    """Shape of the latent noise for ``prefix`` states (rssm.py:52-65)."""
+    return tuple(prefix) + ((stoch_dim, stoch_discrete) if stoch_discrete else (stoch_dim,))
+
+
+class RSSMCell(nn.Module):
+    """One RSSM step: (h,z) + action [+ embed] -> new (h,z) and post/prior stats."""
+
+    def __init__(self, embed_dim: int, action_dim: int, deter_dim: int, stoch_dim: int,
+                 stoch_discrete: int, hidden_dim: int, gru_layers: int = 1,
+                 gru_type: str = "gru", layer_norm: bool = True, dtype=torch.float32):
+        super().__init__()
+        self.stoch_dim = stoch_dim
+        self.stoch_discrete = stoch_discrete
+        self.compute_dtype = dtype
+        z_dim = stoch_dim * (stoch_discrete or 1)
+        out_stoch = stoch_dim * (stoch_discrete or 2)
+        self.z_mlp = Dense(z_dim, hidden_dim, dtype=dtype)
+        self.a_mlp = Dense(action_dim, hidden_dim, bias=False, dtype=dtype)
+        self.in_norm = Norm(hidden_dim, layer_norm, dtype=dtype)
+        self.gru = GRUCellStack(hidden_dim, deter_dim, gru_layers, gru_type, dtype=dtype)
+        self.prior_mlp_h = Dense(deter_dim, hidden_dim, dtype=dtype)
+        self.prior_norm = Norm(hidden_dim, layer_norm, dtype=dtype)
+        self.prior_mlp = Dense(hidden_dim, out_stoch, dtype=dtype)
+        self.post_mlp_h = Dense(deter_dim, hidden_dim, dtype=dtype)
+        self.post_mlp_e = Dense(embed_dim, hidden_dim, bias=False, dtype=dtype)
+        self.post_norm = Norm(hidden_dim, layer_norm, dtype=dtype)
+        self.post_mlp = Dense(hidden_dim, out_stoch, dtype=dtype)
+
+    # -- pieces -----------------------------------------------------------
+
+    def _gru_step(self, action, in_state: State, reset_mask) -> torch.Tensor:
+        h, z = in_state
+        if reset_mask is not None:
+            h = h * reset_mask
+            z = z * reset_mask
+        x = self.z_mlp(z) + self.a_mlp(action.to(self.compute_dtype))
+        za = F.elu(self.in_norm(x))
+        return self.gru(za, h.to(self.compute_dtype)).float()
+
+    def _post_stats(self, h, embed) -> torch.Tensor:
+        dt = self.compute_dtype
+        x = self.post_mlp_h(h.to(dt)) + self.post_mlp_e(embed.to(dt))
+        return self.post_mlp(F.elu(self.post_norm(x))).float()
+
+    def _prior_stats(self, h) -> torch.Tensor:
+        x = self.prior_mlp_h(h.to(self.compute_dtype))
+        return self.prior_mlp(F.elu(self.prior_norm(x))).float()
+
+    def zdistr(self, pp: torch.Tensor):
+        if self.stoch_discrete:
+            logits = pp.reshape(pp.shape[:-1] + (self.stoch_dim, self.stoch_discrete))
+            return OneHotCategorical(logits, event_dims=1)
+        return diag_normal(pp)
+
+    # -- steps ------------------------------------------------------------
+
+    def post_step(self, in_state: State, embed, action, reset_mask, z_noise):
+        h = self._gru_step(action, in_state, reset_mask)
+        post = self._post_stats(h, embed)
+        z = self.zdistr(post).rsample_noise(z_noise).reshape(h.shape[0], -1)
+        return post, (h, z)
+
+    def prior_step(self, in_state: State, action, reset_mask, z_noise):
+        h = self._gru_step(action, in_state, reset_mask)
+        prior = self._prior_stats(h)
+        z = self.zdistr(prior).rsample_noise(z_noise).reshape(h.shape[0], -1)
+        return prior, (h, z)
+
+    def batch_prior(self, h: torch.Tensor) -> torch.Tensor:
+        return self._prior_stats(h)
+
+
+class RSSMCore(nn.Module):
+    """T-step RSSM unroll (rssm.py:159-233)."""
+
+    def __init__(self, embed_dim: int, action_dim: int, deter_dim: int, stoch_dim: int,
+                 stoch_discrete: int, hidden_dim: int, gru_layers: int = 1,
+                 gru_type: str = "gru", layer_norm: bool = True, dtype=torch.float32):
+        super().__init__()
+        self.stoch_dim = stoch_dim
+        self.stoch_discrete = stoch_discrete
+        self.cell = RSSMCell(embed_dim, action_dim, deter_dim, stoch_dim, stoch_discrete,
+                             hidden_dim, gru_layers, gru_type, layer_norm, dtype)
+
+    def forward(self,
+                embed: torch.Tensor,     # (T,B,E)
+                action: torch.Tensor,    # (T,B,A)
+                reset: torch.Tensor,     # (T,B) bool
+                in_state: State,         # ((B*I,D), (B*I,S*K))
+                z_noise: torch.Tensor,   # (T,B*I,S,K) standard gumbel / (T,B*I,S) normal
+                iwae_samples: int = 1,
+                do_open_loop: bool = False):
+        T, B = embed.shape[:2]
+        I = iwae_samples
+        embeds = expand_iwae(embed, I)
+        actions = expand_iwae(action, I)
+        reset_masks = expand_iwae((~reset.bool()).unsqueeze(-1).float(), I)
+
+        posts, states_h, samples = [], [], []
+        state = in_state
+        for t in range(T):
+            if do_open_loop:
+                post, state = self.cell.prior_step(state, actions[t], reset_masks[t], z_noise[t])
+            else:
+                post, state = self.cell.post_step(state, embeds[t], actions[t],
+                                                  reset_masks[t], z_noise[t])
+            posts.append(post)
+            states_h.append(state[0])
+            samples.append(state[1])
+        posts = torch.stack(posts)            # (T,BI,2S)
+        states_h = torch.stack(states_h)      # (T,BI,D)
+        samples = torch.stack(samples)        # (T,BI,S*K)
+
+        priors = self.cell.batch_prior(states_h)
+        features = to_feature(states_h, samples)
+
+        fold = lambda x: x.reshape((T, B, I) + tuple(x.shape[2:]))
+        states = (fold(states_h), fold(samples))
+        out_state = (state[0].detach(), state[1].detach())
+        return fold(priors), fold(posts), fold(samples), fold(features), states, out_state
+
+    def prior_step(self, in_state: State, action, reset_mask, z_noise):
+        return self.cell.prior_step(in_state, action, reset_mask, z_noise)
+
+    def zdistr(self, pp):
+        return self.cell.zdistr(pp)

@@ -1,0 +1,106 @@
+"""The gradient step: forward + one backward + per-group clip + AdamW.
+
+Counterpart of ``pydreamer_tpu/training/train_step.py:53-162``:
+
+* the periodic critic -> critic_target hard copy happens BEFORE the update,
+  when ``step % target_interval == 0``;
+* one forward computes all four losses and ONE ``backward()`` over their sum
+  yields the partitioned gradients (each loss touches only its own
+  parameters, see ``models/dreamer.py``);
+* pre-clip gradient norms per group are reported as ``grad_norm``,
+  ``grad_norm_probe``, ``grad_norm_actor`` and ``grad_norm_critic``;
+* each group wm / probe / actor / critic is clipped by its global norm with
+  optax's rule (scale by ``max/norm`` when ``norm > max``, not
+  ``clip_grad_norm_``'s ``max/(norm+1e-6)``) and updated by AdamW with
+  ``weight_decay=0`` and ``eps=adam_eps``, each with its own learning rate;
+* critic_target is frozen (no gradient, not in the optimizer).
+
+Master parameters and optimizer state are float32.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import torch
+
+from ..device import resolve_device
+from ..models.functions import global_norm
+from ..models.noise import GeneratorNoise
+
+__all__ = ["TrainStep", "param_groups", "clip_by_global_norm_"]
+
+GROUP_METRICS = (("wm", "grad_norm"), ("probe", "grad_norm_probe"),
+                 ("actor", "grad_norm_actor"), ("critic", "grad_norm_critic"))
+
+
+def param_groups(model, conf) -> Dict[str, List[torch.nn.Parameter]]:
+    """Parameters of each optimizer group (train_step.py:38-72)."""
+    groups = {
+        "wm": list(model.wm.parameters()),
+        "probe": list(model.probe.parameters()),
+        "actor": list(model.ac.actor.parameters()),
+        "critic": list(model.ac.critic.parameters()),
+    }
+    if conf.get("probe_gradients", False):
+        groups["wm"] += groups.pop("probe")
+    return groups
+
+
+@torch.no_grad()
+def clip_by_global_norm_(grads: List[torch.Tensor], norm: torch.Tensor, max_norm: float) -> None:
+    """optax.clip_by_global_norm in place: g * max/norm where norm >= max."""
+    factor = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
+    torch._foreach_mul_(grads, factor.to(grads[0].device))
+
+
+class TrainStep:
+    """Owns the optimizer of a ``Dreamer`` and runs its gradient step."""
+
+    def __init__(self, model, conf, device: str | torch.device = "cuda"):
+        self.device = resolve_device(device)
+        if model.device != self.device:
+            raise ValueError(f"model is on {model.device}, TrainStep on {self.device}")
+        self.model = model
+        self.conf = conf
+        self.target_interval = conf.get("target_interval", 0)
+        self.groups = param_groups(model, conf)
+        lrs = {"wm": conf.adam_lr, "probe": conf.adam_lr,
+               "actor": conf.adam_lr_actor or conf.adam_lr,
+               "critic": conf.adam_lr_critic or conf.adam_lr}
+        clip_ac = conf.grad_clip_ac or conf.grad_clip
+        self.clips = {"wm": conf.grad_clip, "probe": conf.grad_clip,
+                      "actor": clip_ac, "critic": clip_ac}
+        self.optimizer = torch.optim.AdamW(
+            [{"params": ps, "lr": lrs[name], "name": name} for name, ps in self.groups.items()],
+            eps=conf.adam_eps, weight_decay=0.0)
+
+    def __call__(self, obs: Dict[str, torch.Tensor], in_state, step: int,
+                 noise: Optional[object] = None, seed: int = 0):
+        """One step. ``noise`` defaults to a ``GeneratorNoise`` seeded from
+        ``(seed, step)``. Returns (out_state, metrics, tensors); metrics are
+        0-d tensors on the device (no host sync here)."""
+        if noise is None:
+            noise = GeneratorNoise(self.device, seed=seed * 1_000_003 + step)
+        model = self.model
+        if self.target_interval and step % self.target_interval == 0:
+            model.ac.update_critic_target()
+
+        losses, out_state, metrics, tensors, _ = model.training_step(obs, in_state, noise)
+        self.optimizer.zero_grad(set_to_none=True)
+        sum(losses.values()).backward()
+
+        metrics = dict(metrics)
+        for name, metric in GROUP_METRICS:
+            if name not in self.groups:
+                continue
+            params = self.groups[name]
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+            for p, g in zip(params, grads):
+                p.grad = g
+            norm = global_norm(grads)
+            metrics[metric] = norm
+            clip_by_global_norm_(grads, norm, self.clips[name])
+        self.optimizer.step()
+        metrics.update({k: v.detach() for k, v in losses.items()})
+        return out_state, metrics, tensors
