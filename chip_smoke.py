@@ -7,20 +7,27 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
 
 1. Build kernel K1 (``ops/csrc/gru_dv2.cu``, nvcc for sm_90a) and print the
    card's name and power limit as nvidia-smi reports them.
-2. Hold K1 against its plain PyTorch version: forward max-abs error and the
-   gradients of all six inputs, at both main-path shapes (M=32 and M=1536
-   rows, in=1000, H=1024, bf16 operands) and at small ragged shapes that
-   exercise the tile bounds. Time the kernel and the plain version.
+2. Hold every K1 schedule against its plain PyTorch version: forward max-abs
+   error and the gradients of all six inputs. ``skinny`` and ``wide`` at the
+   two main-path shapes (M=32 and M=1536 rows, In=1000, H=1024, bf16) and at
+   H=2048 (the ``defaults`` width), ``generic`` at small ragged shapes, ``f32``
+   at both main-path row counts in float32. Time each (CUDA graphs of many
+   launches, cold and warm L2) beside its bound, the plain version, the
+   cuBLAS product of the concatenated operands (``gemm_library_ms``), the
+   unfused composition the ``gru_layernorm_dv2_xla`` cell runs
+   (``unfused_ms``), and, at the main-path shapes, the ``generic`` schedule
+   (the first, unpipelined design). The port calls none of these yardsticks. Then the fused
+   cell under ``precision: float32`` on the card: it must take ``f32``.
 3. Check the train step's forward at full width with the K1 cell against the
    unfused ``gru_layernorm_dv2_xla`` cell (same weights, same noise).
 4. Drive the main path: the flagship Dreamer/Atari train step
    (T=48, B=32, deter 1024, stoch 32x32, hidden 1000, cnn_depth 48, H=15,
    bf16 compute, uint8 images, gru_type gru_layernorm_dv2) from random
    weights made from a seed: 2 warm-up and 5 timed TrainStep calls. The K1
-   launch counter is set to 0 just before and read just after; it must have
-   grown by exactly steps * (T + H).
-5. Profile one more step with torch.profiler: K1's kernel names, device time
-   and launches, and the device's busy share of the step.
+   launch counter is set to 0 just before and read just after: T launches a
+   step must have taken ``skinny`` and H ``wide``, none ``generic``.
+5. Profile one more step with torch.profiler: K1's kernels, device time and
+   launches, and the device's busy time in the step.
 6. Time the train step with the K1 cell against the unfused cell, in turns
    (unfused, K1, K1, unfused; 5 steps per window).
 
@@ -74,9 +81,10 @@ PEAKS = {
     "H100": (3.35e12, 989e12, 67e12),  # SXM5 (nvidia-smi: "NVIDIA H100 80GB HBM3")
 }
 
-FWD_TOL = 2e-3    # max-abs on h' (|h'| <= ~1): f32 sums in another order, amplified by LayerNorm
-GRAD_TOL = 1e-3   # relative to each gradient's max-abs: backward is the same plain recompute
-LOSS_RTOL = 2e-2  # fused vs unfused cell in bf16 over a 48-step loop and a 15-step dream
+FWD_TOL = 2e-3      # max-abs on h' (|h'| <= ~1), bf16 operands: f32 sums in another order, amplified by LayerNorm
+FWD_TOL_F32 = 1e-4  # max-abs on h', f32 operands: both sides full f32 (TF32 off), sums in another order
+GRAD_TOL = 1e-3     # relative to each gradient's max-abs: backward is the same plain recompute
+LOSS_RTOL = 2e-2    # fused vs unfused cell in bf16 over a 48-step loop and a 15-step dream
 
 K1_SOURCE = "pydreamer_tpu_torch/ops/csrc/gru_dv2.cu"
 K1_REPLACES = "pydreamer_tpu/ops/gru_pallas.py:78"
@@ -89,52 +97,97 @@ def peaks_for(name: str):
     raise RuntimeError(f"no peak rates known for card {name!r}")
 
 
-def k1_bound_ms(M: int, In: int, H: int, peaks) -> tuple[float, str]:
+def k1_bound_ms(M: int, In: int, H: int, peaks, tensor_cores: bool) -> tuple[float, str]:
     """Least time for one K1 step: each input read once, the output written once;
-    the two products at the bf16 tensor rate, LayerNorm and gates at fp32."""
+    the two products at the bf16 tensor rate (bf16 operands) or the fp32 rate
+    (f32 operands, no TF32), LayerNorm and gates at the fp32 rate."""
     bw, bf16_rate, f32_rate = peaks
-    nbytes = 2 * (M * In + M * H + In * 3 * H + H * 3 * H) + 4 * (2 * 3 * H) + 4 * M * H
+    elem = 2 if tensor_cores else 4
+    nbytes = elem * (M * In + M * H + In * 3 * H + H * 3 * H) + 4 * (2 * 3 * H) + 4 * M * H
     t_bytes = nbytes / bw
-    t_ops = 2 * M * (In + H) * 3 * H / bf16_rate + M * (8 * 3 * H + 10 * H) / f32_rate
+    t_ops = (2 * M * (In + H) * 3 * H / (bf16_rate if tensor_cores else f32_rate)
+             + M * (8 * 3 * H + 10 * H) / f32_rate)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def time_ms(torch, fn, iters: int, flush=None) -> float:
-    """Device time per call by CUDA events; with ``flush``, the flush's own time
-    (run alone) is subtracted so each call finds a cold L2."""
-    def run(body):
+    """Device time per call: ``iters`` calls captured in one CUDA graph, so the
+    host's launch cost does not enter; the median of 3 replays. With
+    ``flush``, each call follows a flush of the L2 and the flushes' own time
+    (a graph of flushes alone) is subtracted."""
+    def graph_ms(body):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                body()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(iters):
+                body()
+        graph.replay()
+        torch.cuda.synchronize()
+        times = []
         for _ in range(3):
-            body()
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            body()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / iters
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            graph.replay()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end) / iters)
+        return sorted(times)[1]
 
     if flush is None:
-        return run(fn)
-    return run(lambda: (flush(), fn())) - run(flush)
+        return graph_ms(fn)
+    return graph_ms(lambda: (flush(), fn())) - graph_ms(flush)
 
 
-def k1_inputs(torch, M, In, H, gen, device):
+def call_us(torch, fn, n: int = 200) -> float:
+    """Host-clock microseconds per call over ``n`` back-to-back eager calls
+    (then one synchronize): the launch path's host cost where it exceeds the
+    device time, as it does inside the host-bound train step."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def k1_inputs(torch, M, In, H, gen, device, dtype):
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=device)
-    return (randn(M, In).bfloat16(), torch.tanh(randn(M, H)).bfloat16(),
-            (0.03 * randn(In, 3 * H)).bfloat16(), (0.03 * randn(H, 3 * H)).bfloat16(),
+    return (randn(M, In).to(dtype), torch.tanh(randn(M, H)).to(dtype),
+            (0.03 * randn(In, 3 * H)).to(dtype), (0.03 * randn(H, 3 * H)).to(dtype),
             1.0 + 0.1 * randn(3 * H), 0.1 * randn(3 * H))
 
 
-def check_k1(torch, k1, M, In, H, gen, device, timed: bool, peaks):
-    ins = k1_inputs(torch, M, In, H, gen, device)
+def unfused_cell(torch, layer_norm):
+    """The composition NormGRUCellLateReset.forward runs, on operands already
+    in its compute dtype: two products, LayerNorm in f32, the gate ops."""
+    def cell(x, h, w_ih, w_hh, scale, bias):
+        dt = x.dtype
+        gates = layer_norm(x @ w_ih + h @ w_hh, scale, bias, dt)
+        r, u, n = gates.chunk(3, -1)
+        update = torch.sigmoid(u - 1.0)
+        return update * torch.tanh(torch.sigmoid(r) * n) + (1.0 - update) * h
+    return cell
+
+
+def check_k1(torch, k1, M, In, H, dtype, want, gen, device, timed: bool, peaks, unfused=None):
+    ins = k1_inputs(torch, M, In, H, gen, device, dtype)
+    got = k1.plan(M, In, H, dtype).schedule
+    if got != want:
+        raise AssertionError(f"K1 M={M} In={In} H={H} {dtype}: schedule {got}, expected {want}")
+    tol = FWD_TOL if dtype == torch.bfloat16 else FWD_TOL_F32
     out_k = k1.gru_dv2_cuda(*ins)
     out_p = k1.gru_dv2_reference(*ins)
     torch.cuda.synchronize()
     fwd_err = (out_k - out_p).abs().max().item()
-    if not math.isfinite(fwd_err) or fwd_err > FWD_TOL:
-        raise AssertionError(f"K1 M={M} In={In} H={H}: forward max-abs err {fwd_err} > {FWD_TOL}")
+    if not math.isfinite(fwd_err) or fwd_err > tol:
+        raise AssertionError(f"K1 {got} M={M} In={In} H={H}: forward max-abs err {fwd_err} > {tol}")
 
     proj = torch.randn(M, H, generator=gen, device=device)
     leaves_k = [t.clone().requires_grad_() for t in ins]
@@ -146,16 +199,29 @@ def check_k1(torch, k1, M, In, H, gen, device, timed: bool, peaks):
         err = ((a.grad.float() - b.grad.float()).abs().max() / b.grad.float().abs().max()).item()
         grad_errs[name] = err
         if not math.isfinite(err) or err > GRAD_TOL:
-            raise AssertionError(f"K1 M={M}: grad {name} rel err {err} > {GRAD_TOL}")
-    result = dict(M=M, In=In, H=H, max_abs_err=fwd_err, grad_rel_err=grad_errs)
+            raise AssertionError(f"K1 {got} M={M}: grad {name} rel err {err} > {GRAD_TOL}")
+    result = dict(schedule=got, M=M, In=In, H=H, dtype=str(dtype).replace("torch.", ""),
+                  max_abs_err=fwd_err, tol=tol, grad_rel_err=grad_errs)
     if timed:
         flush_buf = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device=device)  # 128 MB > L2
         flush = flush_buf.zero_
         iters = 50
+        xh, w = torch.cat(ins[:2], 1), torch.cat(ins[2:4], 0)
         result["ms"] = time_ms(torch, lambda: k1.gru_dv2_cuda(*ins), iters, flush)
         result["ms_l2_warm"] = time_ms(torch, lambda: k1.gru_dv2_cuda(*ins), iters)
         result["plain_ms"] = time_ms(torch, lambda: k1.gru_dv2_reference(*ins), iters, flush)
-        result["bound_ms"], result["bound_by"] = k1_bound_ms(M, In, H, peaks)
+        result["gemm_library_ms"] = time_ms(torch, lambda: torch.mm(xh, w), iters, flush)
+        result["unfused_ms"] = time_ms(torch, lambda: unfused(*ins), iters, flush)
+        result["call_us"] = call_us(torch, lambda: k1.gru_dv2_cuda(*ins))
+        result["unfused_call_us"] = call_us(torch, lambda: unfused(*ins))
+        if dtype == torch.bfloat16 and H == 1024:  # the first design, at the main-path shapes
+            generic = k1.Plan("generic", workspace=M * 3 * H)
+            result["generic_ms"] = time_ms(torch, lambda: k1._launch(generic, *ins), iters, flush)
+            out_g = k1._launch(generic, *ins)
+            result["generic_max_abs_err"] = (out_g - out_p).abs().max().item()
+        result["bound_ms"], result["bound_by"] = k1_bound_ms(M, In, H, peaks,
+                                                              dtype == torch.bfloat16)
+        result["bound_share"] = result["bound_ms"] / result["ms"]
     return result
 
 
@@ -197,7 +263,9 @@ def main() -> int:
         return 1
     from pydreamer_tpu_torch.conf import Conf
     from pydreamer_tpu_torch.models.dreamer import Dreamer
+    from pydreamer_tpu_torch.models.modules import layer_norm
     from pydreamer_tpu_torch.models.noise import GeneratorNoise
+    from pydreamer_tpu_torch.models.rnn import make_gru_cell
     from pydreamer_tpu_torch.ops import gru_dv2 as k1
     from pydreamer_tpu_torch.training.train_step import TrainStep
 
@@ -222,21 +290,41 @@ def main() -> int:
                   cuda=torch.version.cuda)
     print(f"    card {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
 
-    # 2. K1 against its plain version.
+    # 2. Every K1 schedule against its plain version; times beside the yardsticks.
     conf = Conf(FLAGSHIP)
     T, B, H_imag = conf.batch_length, conf.batch_size, conf.imag_horizon
     In, H = conf.hidden_dim, conf.deter_dim
     gen = torch.Generator(device=device).manual_seed(0)
-    report["k1"] = {}
-    for M in (B, T * B):
-        res = check_k1(torch, k1, M, In, H, gen, device, True, peaks)
-        report["k1"][M] = res
-        print(f"[2] K1 M={M}: max_abs_err {res['max_abs_err']:.3e}, grads ok, "
-              f"{res['ms']:.4f} ms (L2 warm {res['ms_l2_warm']:.4f}), plain {res['plain_ms']:.4f} ms, "
-              f"bound {res['bound_ms']:.4f} ms ({res['bound_by']})")
+    bf16, f32 = torch.bfloat16, torch.float32
+    unfused = unfused_cell(torch, layer_norm)
+    report["k1"] = []
+    for M, H_s, dtype, want in ((B, H, bf16, "skinny"), (T * B, H, bf16, "wide"),
+                                (B, 2048, bf16, "skinny"), (T * B, 2048, bf16, "wide"),
+                                (B, H, f32, "f32"), (T * B, H, f32, "f32")):
+        res = check_k1(torch, k1, M, In, H_s, dtype, want, gen, device, True, peaks, unfused)
+        report["k1"].append(res)
+        print(f"[2] K1 {want} M={M} H={H_s} {res['dtype']}: max_abs_err {res['max_abs_err']:.3e}, "
+              f"grads ok, {res['ms']:.5f} ms (L2 warm {res['ms_l2_warm']:.5f}), "
+              f"bound {res['bound_ms']:.5f} ms ({res['bound_by']}, {100 * res['bound_share']:.1f}%), "
+              f"plain {res['plain_ms']:.5f}, gemm_library {res['gemm_library_ms']:.5f}, "
+              f"unfused {res['unfused_ms']:.5f}, generic {res.get('generic_ms', float('nan')):.5f} ms; "
+              f"host {res['call_us']:.1f} us/call (unfused {res['unfused_call_us']:.1f})")
     for M, In_s, H_s in ((5, 37, 50), (70, 129, 67), (1, 8, 16)):
-        res = check_k1(torch, k1, M, In_s, H_s, gen, device, False, peaks)
-        print(f"[2] K1 ragged M={M} In={In_s} H={H_s}: max_abs_err {res['max_abs_err']:.3e}, grads ok")
+        res = check_k1(torch, k1, M, In_s, H_s, bf16, "generic", gen, device, False, peaks)
+        print(f"[2] K1 generic M={M} In={In_s} H={H_s}: max_abs_err {res['max_abs_err']:.3e}, grads ok")
+    # The fused cell under precision: float32 runs K1's f32 schedule.
+    cell = make_gru_cell("gru_layernorm_dv2", In, H, dtype=f32).to(device)
+    x32, h32 = k1_inputs(torch, B, In, H, gen, device, f32)[:2]
+    k1.LAUNCHES.reset()
+    with torch.no_grad():
+        out32 = cell(x32, h32)
+        ref32 = k1.gru_dv2_reference(x32, h32, cell.weight_ih, cell.weight_hh, cell.ln_scale,
+                                     cell.ln_bias)
+    err32 = (out32 - ref32).abs().max().item()
+    report["f32_cell"] = dict(max_abs_err=err32, launches=dict(k1.LAUNCHES.by_schedule))
+    print(f"[2] gru_layernorm_dv2 cell in float32: {k1.LAUNCHES.by_schedule}, max_abs_err {err32:.3e}")
+    if out32.dtype != f32 or k1.LAUNCHES.by_schedule != {"f32": 1} or not err32 <= FWD_TOL_F32:
+        raise AssertionError(f"float32 cell: {out32.dtype}, {k1.LAUNCHES.by_schedule}, err {err32}")
 
     # 3. Fused vs unfused cell through the full-width forward.
     torch.manual_seed(0)
@@ -264,18 +352,22 @@ def main() -> int:
     k1.LAUNCHES.reset()
     step_ms, state, metrics = timed_steps(torch, ts, obs, state, 2, n_steps)
     launches, by_rows = k1.LAUNCHES.count, dict(k1.LAUNCHES.by_rows)
+    by_schedule = dict(k1.LAUNCHES.by_schedule)
     step = 2 + n_steps
     losses = {k: metrics[k].item() for k in ("loss_model", "loss_probe", "loss_actor", "loss_critic")}
-    report.update(step_ms=step_ms, launches=launches, launches_by_rows=by_rows, losses=losses,
+    report.update(step_ms=step_ms, launches=launches, launches_by_rows=by_rows,
+                  launches_by_schedule=by_schedule, losses=losses,
                   metrics={k: v.item() for k, v in metrics.items()},
                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     print(f"[4] train step: {step_ms:.2f} ms/step over {n_steps} steps, losses {losses}, "
-          f"K1 launches {launches} {by_rows}, peak mem {report['peak_mem_gb']:.2f} GB")
+          f"K1 launches {launches} {by_rows} {by_schedule}, peak mem {report['peak_mem_gb']:.2f} GB")
     if not all(math.isfinite(v) for v in losses.values()):
         raise AssertionError(f"non-finite losses {losses}")
     want = n_steps * (T + H_imag)
-    if launches != want or by_rows != {B: n_steps * T, T * B: n_steps * H_imag}:
-        raise AssertionError(f"K1 launches {launches} {by_rows}, expected {want}")
+    if (launches != want or by_rows != {B: n_steps * T, T * B: n_steps * H_imag}
+            or by_schedule != {"skinny": n_steps * T, "wide": n_steps * H_imag}):
+        raise AssertionError(f"K1 launches {launches} {by_rows} {by_schedule}, expected {want}: "
+                             f"{n_steps * T} skinny and {n_steps * H_imag} wide")
     if tuple(state[0].shape) != (B, H) or not torch.isfinite(state[0]).all():
         raise AssertionError("out_state h is not finite of shape (B, deter)")
 
@@ -290,17 +382,20 @@ def main() -> int:
     attr = "self_device_time_total"
     dev_events = [e for e in events if on_device(e)]
     busy_us = sum(getattr(e, attr) for e in dev_events)
-    k1_events = [e for e in dev_events if "gates_kernel" in e.key or "ln_gate_kernel" in e.key]
+    k1_events = [e for e in dev_events if "k1::" in e.key]  # the .cu's namespace
     k1_us = sum(getattr(e, attr) for e in k1_events)
     k1_rows = [(e.key, e.count, getattr(e, attr)) for e in k1_events]
+    n_by_kernel = {kind: sum(e.count for e in k1_events if kind in e.key)
+                   for kind in ("skinny::gates_kernel", "wide::gates_kernel", "generic::", "f32::")}
     report.update(profile=dict(wall_ms=prof_wall_ms, device_busy_ms=busy_us / 1e3,
-                               k1_kernels=k1_rows, k1_ms=k1_us / 1e3))
+                               k1_kernels=k1_rows, k1_ms=k1_us / 1e3, k1_launches=n_by_kernel))
     table = events.table(sort_by=attr, row_limit=30)
     (OUT_DIR / "chip_smoke_profile.txt").write_text(f"{smi}\n{table}\n")
     print(f"[5] profiled step: wall {prof_wall_ms:.2f} ms, device busy {busy_us / 1e3:.2f} ms; "
           f"K1 {k1_us / 1e3:.3f} ms in {k1_rows}")
-    if not k1_rows or any(count != T + H_imag for _, count, _ in k1_rows):
-        raise AssertionError(f"profiler did not see {T + H_imag} launches of each K1 kernel: {k1_rows}")
+    if n_by_kernel != {"skinny::gates_kernel": T, "wide::gates_kernel": H_imag, "generic::": 0, "f32::": 0}:
+        raise AssertionError(f"profiler saw K1 launches {n_by_kernel}, expected {T} skinny + "
+                             f"{H_imag} wide = {T + H_imag} a step: {k1_rows}")
     step += 1
 
     # 6. Step time with the K1 cell against the unfused cell, in turns
@@ -319,13 +414,18 @@ def main() -> int:
     print(f"[6] ms/step in turns: K1 cell {windows['k1']}, unfused cell {windows['unfused']}")
 
     kernels = []
-    for M in (B, T * B):
-        r = report["k1"][M]
-        kernels.append(dict(name=f"gru_dv2[M={M}]", route="cuda", source=K1_SOURCE,
-                            replaces=K1_REPLACES, launches=by_rows.get(M, 0),
-                            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
-                            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
-                            ms_l2_warm=r["ms_l2_warm"]))
+    for r in report["k1"]:
+        on_path = r["dtype"] == "bfloat16" and r["H"] == H
+        common = dict(route="cuda", source=K1_SOURCE, replaces=K1_REPLACES, bound_ms=r["bound_ms"],
+                      bound_by=r["bound_by"], plain_ms=r["plain_ms"],
+                      library_ms=r["gemm_library_ms"], unfused_ms=r["unfused_ms"])
+        kernels.append(dict(name=f"gru_dv2.{r['schedule']}[M={r['M']},H={r['H']},{r['dtype']}]",
+                            launches=by_schedule.get(r["schedule"], 0) if on_path else 0,
+                            max_abs_err=r["max_abs_err"], ms=r["ms"], ms_l2_warm=r["ms_l2_warm"],
+                            **common))
+        if "generic_ms" in r:
+            kernels.append(dict(name=f"gru_dv2.generic[M={r['M']},H={r['H']},bfloat16]", launches=0,
+                                max_abs_err=r["generic_max_abs_err"], ms=r["generic_ms"], **common))
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
     print(json.dumps({"kernels": kernels}))
     print(smi)

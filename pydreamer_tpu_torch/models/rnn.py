@@ -117,10 +117,10 @@ class NormGRUCellLateResetFused(_GateWeights):
     """DreamerV2 late-reset cell through kernel K1 (``ops/gru_dv2.py``).
 
     Counterpart of ``NormGRUCellLateResetPallas`` (gru_pallas.py:125-164),
-    with the same parameter names. On CUDA tensors the step always runs K1,
-    which takes bf16 operands only, so there the cell needs
-    ``precision: bfloat16`` (float32 raises); on the CPU it runs K1's plain
-    version in either dtype.
+    with the same parameter names. On CUDA tensors the step always runs K1
+    (the bf16 schedules under ``precision: bfloat16``, the full-f32 schedule
+    under ``precision: float32``); on the CPU it runs K1's plain version in
+    either dtype.
     """
 
     def __init__(self, input_size: int, hidden_size: int, dtype=torch.float32):

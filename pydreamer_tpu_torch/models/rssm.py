@@ -35,8 +35,9 @@ State = Tuple[torch.Tensor, torch.Tensor]  # (h: (B,D), z: (B,S*K))
 
 
 def init_state(batch_size: int, deter_dim: int, stoch_dim: int, stoch_discrete: int,
-               device: torch.device | str = "cpu") -> State:
-    """Zero (h, z) state."""
+               *, device: torch.device | str) -> State:
+    """Zero (h, z) state on ``device`` (no default: a state silently made on
+    the CPU would send the model's next step there)."""
     return (
         torch.zeros((batch_size, deter_dim), dtype=torch.float32, device=device),
         torch.zeros((batch_size, stoch_dim * (stoch_discrete or 1)), dtype=torch.float32,

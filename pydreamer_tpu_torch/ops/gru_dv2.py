@@ -4,7 +4,7 @@ Counterpart of ``pydreamer_tpu/ops/gru_pallas.py`` (the Pallas kernel
 ``_kernel``/``_forward`` at 49-84, exposed as ``fused_gru_dv2`` with a
 ``custom_vjp``). One GRU step:
 
-  gates = x @ w_ih + h @ w_hh          (bf16 operands, f32 accumulate)
+  gates = x @ w_ih + h @ w_hh          (f32 accumulate)
   gates = LayerNorm(gates)             (over 3H, eps 1e-3, learned scale/bias)
   r, u, n = split(gates)
   h' = sigmoid(u-1) * tanh(sigmoid(r)*n) + (1-sigmoid(u-1)) * h   (f32)
@@ -13,54 +13,122 @@ Counterpart of ``pydreamer_tpu/ops/gru_pallas.py`` (the Pallas kernel
   ``_reference_math``, gru_pallas.py:87-100): upcast to f32, then the same
   math. The CPU path and the tests use it.
 * :func:`gru_dv2` dispatches on the tensors' device: on the CPU it runs the
-  plain version; on a CUDA tensor it ALWAYS launches the CUDA kernel
-  (``csrc/gru_dv2.cu``) through :class:`GRUDv2Function` — no shape fallback,
-  and a build or launch error raises.
+  plain version; on a CUDA tensor it ALWAYS launches a K1 schedule
+  (``csrc/gru_dv2.cu``) through :class:`GRUDv2Function`, and a build or
+  launch error raises.
 * The backward recomputes through the plain version (as JAX's ``_bwd``,
   gru_pallas.py:114-119, recomputes through plain XLA); there is no backward
   kernel.
 
-The kernel is built from the repo's source at first use with ``nvcc`` for
+Schedules. :func:`plan` picks one from (M, In, H, dtype) alone (see the
+header of ``csrc/gru_dv2.cu`` for what bounds each and how it is built):
+
+* ``skinny`` - bf16, M <= 64, In % 8 == 0, H % 64 == 0 (the posterior scan,
+  M=32): split-N x split-K weight streaming, then a LayerNorm/gate pass;
+* ``wide`` - bf16, M > 64, In % 8 == 0, H % 128 == 0 (the dream scan,
+  M=1536): warp-specialised wgmma fed by TMA, LayerNorm combined across a
+  thread-block cluster when H <= 1024, else a LayerNorm/gate pass;
+* ``generic`` - bf16, every other shape: a WMMA GEMM with bounds-checked
+  tiles, then the LayerNorm/gate pass;
+* ``f32`` - float32 operands: a full-f32 FFMA GEMM, then the pass.
+
+The kernels are built from the repo's source at first use with ``nvcc`` for
 ``sm_90a`` into ``ops/_build/`` (listed in .gitignore) and loaded with ctypes
 through a plain C interface, so the build needs neither ninja nor PyTorch's
-headers. ``LAUNCHES.count`` counts kernel launches so a run can show that its
-main path went through the kernel.
+headers. ``LAUNCHES`` counts launches, in all, by row count and by schedule,
+so a run can show that its main path went through the kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
+import math
 import os
 import subprocess
+from dataclasses import dataclass
 from pathlib import Path
 
 import torch
 
 __all__ = ["gru_dv2", "gru_dv2_reference", "gru_dv2_cuda", "GRUDv2Function",
-           "LAUNCHES", "build", "SOURCE", "BUILD_DIR", "NVCC_FLAGS"]
+           "LAUNCHES", "SCHEDULES", "Plan", "plan", "pick_schedule", "build",
+           "SOURCE", "BUILD_DIR", "NVCC_FLAGS"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "gru_dv2.cu"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-ldl")
 LN_EPS = 1e-3
+
+# In the order of the C side's Schedule enum.
+SCHEDULES = ("generic", "skinny", "wide", "f32")
+SKINNY_MAX_ROWS = 64   # two or four m16 row tiles
+SKINNY_MAX_KC = 512    # weight rows per skinny block
+WIDE_HB = 128          # hidden units per wide block
+WIDE_MAX_CLUSTER = 8   # blocks of a row tile in one cluster (the portable maximum)
+
+
+@dataclass(frozen=True)
+class Plan:
+    """How one K1 launch runs: its schedule, the skinny schedule's K split
+    (``nsplit`` blocks of ``kc`` rows of [w_ih; w_hh]) and the f32 workspace
+    it needs, in elements."""
+    schedule: str
+    nsplit: int = 1
+    kc: int = 0
+    workspace: int = 0
+
+
+def pick_schedule(M: int, In: int, H: int, *dtypes: torch.dtype) -> str:
+    """The K1 schedule for x (M, In), h (M, H) and operands of ``dtypes``."""
+    if len(set(dtypes)) != 1:
+        raise TypeError(f"gru_dv2: x, h, w_ih and w_hh must share one dtype, got {dtypes}")
+    dtype = dtypes[0]
+    if dtype == torch.float32:
+        return "f32"
+    if dtype != torch.bfloat16:
+        raise TypeError(f"gru_dv2: the kernel takes bfloat16 or float32 operands, got {dtype}")
+    if In % 8 == 0 and H % 64 == 0 and M <= SKINNY_MAX_ROWS:
+        return "skinny"
+    if In % 8 == 0 and H % WIDE_HB == 0 and M > SKINNY_MAX_ROWS:
+        return "wide"
+    return "generic"
+
+
+@functools.lru_cache(maxsize=256)
+def plan(M: int, In: int, H: int, *dtypes: torch.dtype) -> Plan:
+    """The schedule, K split and workspace of a launch; cached, as the
+    train step asks for the same few shapes every step."""
+    schedule = pick_schedule(M, In, H, *dtypes)
+    gates = M * 3 * H
+    if schedule == "skinny":
+        K = In + H
+        kc = 64 * math.ceil(K / math.ceil(K / SKINNY_MAX_KC) / 64)
+        nsplit = math.ceil(K / kc)
+        return Plan(schedule, nsplit, kc, nsplit * gates)
+    if schedule == "wide":
+        return Plan(schedule, workspace=0 if H // WIDE_HB <= WIDE_MAX_CLUSTER else gates)
+    return Plan(schedule, workspace=gates)
 
 
 class _LaunchCounter:
-    """Number of K1 launches since the last ``reset()``, in all and by row count M."""
+    """Number of K1 launches since the last ``reset()``: in all, by row count
+    M and by schedule."""
 
     def __init__(self):
-        self.count = 0
-        self.by_rows: dict[int, int] = {}
+        self.reset()
 
-    def add(self, rows: int) -> None:
+    def add(self, rows: int, schedule: str) -> None:
         self.count += 1
         self.by_rows[rows] = self.by_rows.get(rows, 0) + 1
+        self.by_schedule[schedule] = self.by_schedule.get(schedule, 0) + 1
 
     def reset(self) -> None:
         self.count = 0
-        self.by_rows = {}
+        self.by_rows: dict[int, int] = {}
+        self.by_schedule: dict[str, int] = {}
 
 
 LAUNCHES = _LaunchCounter()
@@ -114,7 +182,8 @@ def _load():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        lib.gru_dv2_forward.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        lib.gru_dv2_forward.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
+                                        + [ctypes.c_int] * 5 + [ctypes.c_void_p])
         lib.gru_dv2_forward.restype = ctypes.c_int
         lib.gru_dv2_error_string.argtypes = [ctypes.c_int]
         lib.gru_dv2_error_string.restype = ctypes.c_char_p
@@ -126,11 +195,17 @@ def _check(name, t, dtype, shape, device):
     if t.device != device:
         raise ValueError(f"gru_dv2: {name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
-        raise TypeError(f"gru_dv2: {name} has dtype {t.dtype}, the kernel takes {dtype}")
+        raise TypeError(f"gru_dv2: {name} has dtype {t.dtype}, expected {dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"gru_dv2: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"gru_dv2: {name} must be contiguous")
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself, or a copy when its data does not start on 16 bytes (TMA
+    and 16-byte cp.async need that; a view into a larger tensor may not)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def gru_dv2_cuda(x, h, w_ih, w_hh, scale, bias) -> torch.Tensor:
@@ -140,25 +215,36 @@ def gru_dv2_cuda(x, h, w_ih, w_hh, scale, bias) -> torch.Tensor:
         raise ValueError(f"gru_dv2_cuda takes CUDA tensors, got {device}")
     M, In = x.shape
     H = h.shape[-1]
-    bf16 = torch.bfloat16
-    _check("x", x, bf16, (M, In), device)
-    _check("h", h, bf16, (M, H), device)
-    _check("w_ih", w_ih, bf16, (In, 3 * H), device)
-    _check("w_hh", w_hh, bf16, (H, 3 * H), device)
+    p = plan(M, In, H, x.dtype, h.dtype, w_ih.dtype, w_hh.dtype)
+    dt = x.dtype
+    _check("x", x, dt, (M, In), device)
+    _check("h", h, dt, (M, H), device)
+    _check("w_ih", w_ih, dt, (In, 3 * H), device)
+    _check("w_hh", w_hh, dt, (H, 3 * H), device)
     _check("scale", scale, torch.float32, (3 * H,), device)
     _check("bias", bias, torch.float32, (3 * H,), device)
+    return _launch(p, *map(_aligned, (x, h, w_ih, w_hh)), scale, bias)
+
+
+def _launch(p: Plan, x, h, w_ih, w_hh, scale, bias) -> torch.Tensor:
+    """Launch the schedule of ``p`` on checked CUDA tensors."""
+    device, (M, In), H = x.device, x.shape, h.shape[-1]
     lib = _load()
-    gates = torch.empty((M, 3 * H), dtype=torch.float32, device=device)
+    work = torch.empty((p.workspace,), dtype=torch.float32, device=device) if p.workspace else None
     out = torch.empty((M, H), dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.gru_dv2_forward(
-            x.data_ptr(), h.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(),
-            scale.data_ptr(), bias.data_ptr(), gates.data_ptr(), out.data_ptr(),
-            M, In, H, stream)
+    args = (SCHEDULES.index(p.schedule), x.data_ptr(), h.data_ptr(), w_ih.data_ptr(),
+            w_hh.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            work.data_ptr() if work is not None else None, out.data_ptr(),
+            M, In, H, p.nsplit, p.kc, torch.cuda.current_stream(device).cuda_stream)
+    if device.index in (None, torch.cuda.current_device()):
+        err = lib.gru_dv2_forward(*args)
+    else:  # the kernels launch on the current device
+        with torch.cuda.device(device):
+            err = lib.gru_dv2_forward(*args)
     if err != 0:
-        raise RuntimeError(f"gru_dv2 kernel launch failed: {lib.gru_dv2_error_string(err).decode()}")
-    LAUNCHES.add(M)
+        raise RuntimeError(f"gru_dv2 {p.schedule} launch failed: "
+                           f"{lib.gru_dv2_error_string(err).decode()}")
+    LAUNCHES.add(M, p.schedule)
     return out
 
 
