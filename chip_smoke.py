@@ -30,8 +30,26 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
    launches, and the device's busy time in the step.
 6. Time the train step with the K1 cell against the unfused cell, in turns
    (unfused, K1, K1, unfused; 5 steps per window).
+7. Inference shapes: hold ``skinny`` at M=1 and M=8 (In=1000, H=2048, bf16)
+   against its plain version, forward and six gradients, timed as in 2.
+8. The DMC path (``defaults`` + ``dmc``: deter 2048, action_dim 12,
+   ``actor_grad: dynamics``, ``actor_dist: trunc_normal``; DMC below is its
+   own copy): one forward and backward with the K1 cell and with the unfused
+   cell from the same weights and noise; the four losses and the actor's
+   gradient norm must agree. K1's backward runs at M=1536, H=2048 here.
+9. Drive the DMC train step: 2 warm-up and 5 timed TrainStep calls, counts
+   set to 0 just before and read just after (48 ``skinny`` and 15 ``wide`` a
+   step, none ``generic``), a finite non-zero actor gradient norm, and no
+   world-model gradient from the actor loss alone. Then one log step
+   (``do_image_pred``, ``do_dream_tensors``: 48 + 47 skinny, 15 wide, finite
+   dream tensors of JAX's shapes) and one profiled step: busy time, K1's
+   kernels and the f32 GEMMs of K1's backward recompute.
+10. ``Dreamer.inference`` on the DMC model at B=1 and B=8: one ``skinny``
+   launch a call, finite actions in [-1, 1], host microseconds per call.
 
-Prints one JSON line of per-kernel numbers, then the nvidia-smi line, then
+Prints one JSON line of per-kernel numbers (``launches``: the count on the
+path that runs the shape, ``launches_per_step``: per train step or acting
+call), then the nvidia-smi line, then
 as the last line ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json`` and ``chiprun_out/chip_smoke_profile.txt``.
 This script imports nothing of JAX or of the JAX package; the flagship
@@ -73,6 +91,12 @@ FLAGSHIP = dict(
     lambda_gae_aux=0.95, target_interval_aux=1000,
 )
 
+# `defaults` + `dmc` (config/defaults.yaml): the defaults' width (deter 2048,
+# kl_weight 1.0, gamma 0.995) with the DMC policy: 12 continuous actions, the
+# dynamics gradient through the dream, the truncated-normal head.
+DMC = dict(FLAGSHIP, deter_dim=2048, action_dim=12, kl_weight=1.0, gamma=0.995, entropy=1e-4,
+           actor_grad="dynamics", actor_dist="trunc_normal")
+
 # Dense peak rates from NVIDIA's data sheets: (bytes/s, bf16 tensor FLOP/s,
 # fp32 non-tensor FLOP/s), at the card's full power limit.
 PEAKS = {
@@ -85,6 +109,10 @@ FWD_TOL = 2e-3      # max-abs on h' (|h'| <= ~1), bf16 operands: f32 sums in ano
 FWD_TOL_F32 = 1e-4  # max-abs on h', f32 operands: both sides full f32 (TF32 off), sums in another order
 GRAD_TOL = 1e-3     # relative to each gradient's max-abs: backward is the same plain recompute
 LOSS_RTOL = 2e-2    # fused vs unfused cell in bf16 over a 48-step loop and a 15-step dream
+LOSS_ATOL = 1e-3    # ... for losses near 0 (the dummy probe)
+AC_LOSS_RTOL = 1e-1  # actor/critic losses: small means over a 15-step bf16 dream (the unfused
+                     # cell rounds its gates to bf16); the flagship's differed by 3.6% in phase 3
+GRAD_NORM_RTOL = 5e-2  # the actor's gradient norm, fused vs unfused, through the 15-step dream
 
 K1_SOURCE = "pydreamer_tpu_torch/ops/csrc/gru_dv2.cu"
 K1_REPLACES = "pydreamer_tpu/ops/gru_pallas.py:78"
@@ -230,18 +258,22 @@ def timed_steps(torch, ts, obs, state, step: int, n: int):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(n):
-        state, metrics, _ = ts(obs, state, step + 1 + i)
+        state, metrics, _, _ = ts(obs, state, step + 1 + i)
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) / n * 1e3, state, metrics
 
 
-def make_obs(torch, conf, gen, device):
-    T, B, A = conf.batch_length, conf.batch_size, conf.action_dim
+def make_obs(torch, conf, gen, device, T=None, B=None):
+    T, B, A = T or conf.batch_length, B or conf.batch_size, conf.action_dim
     reset = torch.zeros(T, B, dtype=torch.bool, device=device)
     reset[0] = True
-    action_idx = torch.randint(0, A, (T, B), generator=gen, device=device)
+    if conf.actor_dist == "onehot":
+        action_idx = torch.randint(0, A, (T, B), generator=gen, device=device)
+        action = torch.nn.functional.one_hot(action_idx, A).float()
+    else:
+        action = torch.rand(T, B, A, generator=gen, device=device) * 2 - 1
     return dict(
-        action=torch.nn.functional.one_hot(action_idx, A).float(),
+        action=action,
         reward=torch.rand(T, B, generator=gen, device=device),
         terminal=torch.zeros(T, B, device=device),
         reset=reset,
@@ -253,6 +285,48 @@ def make_obs(torch, conf, gen, device):
 def on_device(event) -> bool:
     """A kernel (or memcpy/memset) event, as opposed to the CPU op that launched it."""
     return str(event.device_type).endswith("CUDA")
+
+
+def profile_step(torch, ts, obs, state, step):
+    """One TrainStep under torch.profiler: (state, report, key_averages)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _, _, _ = ts(obs, state, step)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    attr = "self_device_time_total"
+    dev_events = [e for e in events if on_device(e)]
+    busy_us = sum(getattr(e, attr) for e in dev_events)
+    k1_events = [e for e in dev_events if "k1::" in e.key]  # the .cu's namespace
+    k1_rows = [(e.key, e.count, getattr(e, attr)) for e in k1_events]
+    n_by_kernel = {kind: sum(e.count for e in k1_events if kind in e.key)
+                   for kind in ("skinny::gates_kernel", "wide::gates_kernel", "generic::", "f32::")}
+    ms_by_kernel = {kind: sum(getattr(e, attr) for e in k1_events if kind in e.key) / 1e3
+                    for kind in ("skinny::gates_kernel", "wide::gates_kernel", "ln_gate_kernel")}
+    # K1's backward recomputes the cell through the plain version in float32:
+    # its products are the step's only float32 GEMMs (the model's run in bf16).
+    f32_gemms = [e for e in dev_events if "gemm" in e.key.lower() and "k1::" not in e.key
+                 and ("f32f32" in e.key or "sgemm" in e.key)]
+    report = dict(wall_ms=wall_ms, device_busy_ms=busy_us / 1e3, k1_kernels=k1_rows,
+                  k1_ms=sum(r[2] for r in k1_rows) / 1e3, k1_launches=n_by_kernel,
+                  k1_ms_by_kernel=ms_by_kernel,
+                  f32_gemm_ms=sum(getattr(e, attr) for e in f32_gemms) / 1e3,
+                  f32_gemm_calls=sum(e.count for e in f32_gemms),
+                  f32_gemm_kernels=sorted({e.key for e in f32_gemms}))
+    return state, report, events
+
+
+def unfused_state_dict(sd):
+    """The K1 cell's weights under the unfused cell's names."""
+    return {k.replace("cell_0.ln_scale", "cell_0.lnorm.weight")
+             .replace("cell_0.ln_bias", "cell_0.lnorm.bias"): v for k, v in sd.items()}
+
+
+def actor_grad_norm(torch, model):
+    return torch.sqrt(sum(p.grad.float().square().sum() for p in model.ac.actor.parameters()
+                          if p.grad is not None)).item()
 
 
 def main() -> int:
@@ -331,9 +405,7 @@ def main() -> int:
     model = Dreamer(conf, device=device)
     obs = make_obs(torch, conf, gen, device)
     xla = Dreamer(conf.replace(gru_type="gru_layernorm_dv2_xla"), device=device)
-    sd = {k.replace("cell_0.ln_scale", "cell_0.lnorm.weight").replace("cell_0.ln_bias", "cell_0.lnorm.bias"): v
-          for k, v in model.state_dict().items()}
-    xla.load_state_dict(sd)
+    xla.load_state_dict(unfused_state_dict(model.state_dict()))
     with torch.no_grad():
         lf, *_ = model.training_step(obs, model.init_state(B), GeneratorNoise(device, seed=7))
         lx, *_ = xla.training_step(obs, xla.init_state(B), GeneratorNoise(device, seed=7))
@@ -372,30 +444,15 @@ def main() -> int:
         raise AssertionError("out_state h is not finite of shape (B, deter)")
 
     # 5. Profile one step.
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state, metrics, _ = ts(obs, state, step + 1)
-        torch.cuda.synchronize()
-        prof_wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    attr = "self_device_time_total"
-    dev_events = [e for e in events if on_device(e)]
-    busy_us = sum(getattr(e, attr) for e in dev_events)
-    k1_events = [e for e in dev_events if "k1::" in e.key]  # the .cu's namespace
-    k1_us = sum(getattr(e, attr) for e in k1_events)
-    k1_rows = [(e.key, e.count, getattr(e, attr)) for e in k1_events]
-    n_by_kernel = {kind: sum(e.count for e in k1_events if kind in e.key)
-                   for kind in ("skinny::gates_kernel", "wide::gates_kernel", "generic::", "f32::")}
-    report.update(profile=dict(wall_ms=prof_wall_ms, device_busy_ms=busy_us / 1e3,
-                               k1_kernels=k1_rows, k1_ms=k1_us / 1e3, k1_launches=n_by_kernel))
-    table = events.table(sort_by=attr, row_limit=30)
-    (OUT_DIR / "chip_smoke_profile.txt").write_text(f"{smi}\n{table}\n")
-    print(f"[5] profiled step: wall {prof_wall_ms:.2f} ms, device busy {busy_us / 1e3:.2f} ms; "
-          f"K1 {k1_us / 1e3:.3f} ms in {k1_rows}")
-    if n_by_kernel != {"skinny::gates_kernel": T, "wide::gates_kernel": H_imag, "generic::": 0, "f32::": 0}:
-        raise AssertionError(f"profiler saw K1 launches {n_by_kernel}, expected {T} skinny + "
-                             f"{H_imag} wide = {T + H_imag} a step: {k1_rows}")
+    state, prof5, events = profile_step(torch, ts, obs, state, step + 1)
+    report["profile"] = prof5
+    table = events.table(sort_by="self_device_time_total", row_limit=30)
+    print(f"[5] profiled step: wall {prof5['wall_ms']:.2f} ms, device busy "
+          f"{prof5['device_busy_ms']:.2f} ms; K1 {prof5['k1_ms']:.3f} ms in {prof5['k1_kernels']}")
+    if prof5["k1_launches"] != {"skinny::gates_kernel": T, "wide::gates_kernel": H_imag,
+                                "generic::": 0, "f32::": 0}:
+        raise AssertionError(f"profiler saw K1 launches {prof5['k1_launches']}, expected {T} skinny "
+                             f"+ {H_imag} wide = {T + H_imag} a step: {prof5['k1_kernels']}")
     step += 1
 
     # 6. Step time with the K1 cell against the unfused cell, in turns
@@ -413,19 +470,185 @@ def main() -> int:
     report["step_ms_ab"] = windows
     print(f"[6] ms/step in turns: K1 cell {windows['k1']}, unfused cell {windows['unfused']}")
 
+    path_launches = {("skinny", B, H): by_schedule.get("skinny", 0),
+                     ("wide", T * B, H): by_schedule.get("wide", 0)}  # phase 4, flagship
+    del model, xla, ts, ts_xla, state, state_xla
+    torch.cuda.empty_cache()
+
+    # 7. Inference shapes: skinny at M=1 and M=8, H=2048, against its plain version.
+    for M in (1, 8):
+        res = check_k1(torch, k1, M, In, 2048, bf16, "skinny", gen, device, True, peaks, unfused)
+        report["k1"].append(res)
+        print(f"[7] K1 skinny M={M} H=2048: max_abs_err {res['max_abs_err']:.3e}, grads ok, "
+              f"{res['ms']:.5f} ms (L2 warm {res['ms_l2_warm']:.5f}), bound {res['bound_ms']:.5f} ms "
+              f"({res['bound_by']}, {100 * res['bound_share']:.1f}%), plain {res['plain_ms']:.5f}, "
+              f"gemm_library {res['gemm_library_ms']:.5f}, unfused {res['unfused_ms']:.5f} ms; "
+              f"host {res['call_us']:.1f} us/call (unfused {res['unfused_call_us']:.1f})")
+
+    # 8. The DMC path: one forward and backward with the K1 cell and with the
+    #    unfused cell, same weights, same noise.
+    dconf = Conf(DMC)
+    Hd, A = dconf.deter_dim, dconf.action_dim
+    torch.manual_seed(1)
+    dmodel = Dreamer(dconf, device=device)
+    dxla = Dreamer(dconf.replace(gru_type="gru_layernorm_dv2_xla"), device=device)
+    dxla.load_state_dict(unfused_state_dict(dmodel.state_dict()))
+    dobs = make_obs(torch, dconf, gen, device)
+    cmp8 = {}
+    for tag, m in (("k1", dmodel), ("unfused", dxla)):
+        k1.LAUNCHES.reset()
+        losses, *_ = m.training_step(dobs, m.init_state(B), GeneratorNoise(device, seed=8))
+        sum(losses.values()).backward()
+        torch.cuda.synchronize()
+        cmp8[tag] = dict({k: v.item() for k, v in losses.items()},
+                         grad_norm_actor=actor_grad_norm(torch, m),
+                         launches=dict(k1.LAUNCHES.by_schedule))
+        m.zero_grad(set_to_none=True)
+    report["dmc_fused_vs_unfused"] = cmp8
+    print("[8] DMC fused vs unfused:", {k: f"{cmp8['k1'][k]:.5f}/{cmp8['unfused'][k]:.5f}"
+                                        for k in cmp8["k1"] if k != "launches"},
+          "K1 launches", cmp8["k1"]["launches"])
+    if cmp8["k1"]["launches"] != {"skinny": T, "wide": H_imag} or cmp8["unfused"]["launches"]:
+        raise AssertionError(f"phase 8 K1 launches {cmp8['k1']['launches']} / "
+                             f"{cmp8['unfused']['launches']}, expected {T} skinny + {H_imag} wide / none")
+    for k, rtol in (("loss_model", LOSS_RTOL), ("loss_probe", LOSS_RTOL),
+                    ("loss_actor", AC_LOSS_RTOL), ("loss_critic", AC_LOSS_RTOL)):
+        a, b = cmp8["k1"][k], cmp8["unfused"][k]
+        if not abs(a - b) <= rtol * max(abs(a), abs(b)) + LOSS_ATOL:
+            raise AssertionError(f"DMC fused vs unfused {k}: {a} vs {b}")
+    a, b = cmp8["k1"]["grad_norm_actor"], cmp8["unfused"]["grad_norm_actor"]
+    if not (math.isfinite(a) and a > 0 and abs(a - b) <= GRAD_NORM_RTOL * b):
+        raise AssertionError(f"DMC fused vs unfused actor gradient norm: {a} vs {b}")
+    del dxla
+    torch.cuda.empty_cache()
+
+    # 9. Drive the DMC train step: 2 warm-up + 5 timed steps.
+    dts = TrainStep(dmodel, dconf, device=device)
+    _, dstate, _ = timed_steps(torch, dts, dobs, dmodel.init_state(B), 0, 2)
+    torch.cuda.reset_peak_memory_stats()
+    k1.LAUNCHES.reset()
+    dstep_ms, dstate, dmetrics = timed_steps(torch, dts, dobs, dstate, 2, n_steps)
+    d_rows, d_sched = dict(k1.LAUNCHES.by_rows), dict(k1.LAUNCHES.by_schedule)
+    dstep = 2 + n_steps
+    dlosses = {k: dmetrics[k].item() for k in ("loss_model", "loss_probe", "loss_actor", "loss_critic")}
+    gna = dmetrics["grad_norm_actor"].item()
+    report["dmc"] = dict(step_ms=dstep_ms, launches_by_rows=d_rows, launches_by_schedule=d_sched,
+                         losses=dlosses, metrics={k: v.item() for k, v in dmetrics.items()},
+                         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"[9] DMC train step: {dstep_ms:.2f} ms/step over {n_steps} steps, losses {dlosses}, "
+          f"grad_norm_actor {gna:.5g}, K1 launches {d_rows} {d_sched}, "
+          f"peak mem {report['dmc']['peak_mem_gb']:.2f} GB")
+    if d_rows != {B: n_steps * T, T * B: n_steps * H_imag} or \
+            d_sched != {"skinny": n_steps * T, "wide": n_steps * H_imag}:
+        raise AssertionError(f"DMC K1 launches {d_rows} {d_sched}, expected {n_steps * T} skinny "
+                             f"[M={B}] and {n_steps * H_imag} wide [M={T * B}], no generic")
+    if not all(math.isfinite(v) for v in dlosses.values()) or not (math.isfinite(gna) and gna > 0):
+        raise AssertionError(f"DMC step: losses {dlosses}, grad_norm_actor {gna}")
+    path_launches.update({("skinny", B, Hd): d_sched["skinny"], ("wide", T * B, Hd): d_sched["wide"]})
+
+    # The actor loss alone reaches the actor and leaves the world model alone.
+    dmodel.zero_grad(set_to_none=True)  # TrainStep leaves its step's gradients behind
+    losses, *_ = dmodel.training_step(dobs, dstate, GeneratorNoise(device, seed=9))
+    losses["loss_actor"].backward()
+    leaked = [n for n, p in dmodel.wm.named_parameters() if p.grad is not None and p.grad.any()]
+    only_actor = actor_grad_norm(torch, dmodel)
+    dmodel.zero_grad(set_to_none=True)
+    report["dmc"]["actor_loss_only"] = dict(wm_params_with_grad=leaked, grad_norm_actor=only_actor)
+    print(f"[9] actor loss alone: actor grad norm {only_actor:.5g}, wm parameters with a "
+          f"gradient: {leaked}")
+    if leaked or not only_actor > 0:
+        raise AssertionError(f"actor loss alone: wm gradients {leaked}, actor norm {only_actor}")
+
+    # One log step with both flags.
+    k1.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    dstate, lmetrics, _, dream = dts(dobs, dstate, dstep + 1, do_image_pred=True,
+                                     do_dream_tensors=True)
+    torch.cuda.synchronize()
+    log_ms = (time.perf_counter() - t0) * 1e3
+    dstep += 1
+    l_rows, l_sched = dict(k1.LAUNCHES.by_rows), dict(k1.LAUNCHES.by_schedule)
+    shapes = {k: tuple(v.shape) for k, v in dream.items()}
+    report["dmc"]["log_step"] = dict(ms=log_ms, launches_by_rows=l_rows, launches_by_schedule=l_sched,
+                                     dream_shapes=shapes,
+                                     logprob={k: v.item() for k, v in lmetrics.items()
+                                              if k.startswith("logprob_")})
+    print(f"[9] log step: {log_ms:.2f} ms, K1 launches {l_rows} {l_sched}, dream tensors {shapes}")
+    if l_sched != {"skinny": 2 * T - 1, "wide": H_imag} or l_rows != {B: 2 * T - 1, T * B: H_imag}:
+        raise AssertionError(f"log step K1 launches {l_rows} {l_sched}, expected {T}+{T - 1} "
+                             f"skinny and {H_imag} wide")
+    if shapes.get("image_pred") != (T, B, 64, 64, 3) or shapes.get("action_pred") != (T, B, A):
+        raise AssertionError(f"dream tensor shapes {shapes}")
+    if not all(torch.isfinite(v).all() for v in dream.values()) or \
+            not all(math.isfinite(v.item()) for v in lmetrics.values()):
+        raise AssertionError("log step: non-finite dream tensors or metrics")
+
+    # Profile one step.
+    dstate, prof9, events9 = profile_step(torch, dts, dobs, dstate, dstep + 1)
+    dstep += 1
+    report["dmc"]["profile"] = prof9
+    print(f"[9] profiled DMC step: wall {prof9['wall_ms']:.2f} ms, device busy "
+          f"{prof9['device_busy_ms']:.2f} ms; K1 {prof9['k1_ms']:.3f} ms {prof9['k1_ms_by_kernel']}; "
+          f"f32 GEMMs (K1's backward recompute) {prof9['f32_gemm_ms']:.3f} ms in "
+          f"{prof9['f32_gemm_calls']} calls")
+    if prof9["k1_launches"] != {"skinny::gates_kernel": T, "wide::gates_kernel": H_imag,
+                                "generic::": 0, "f32::": 0}:
+        raise AssertionError(f"profiler saw K1 launches {prof9['k1_launches']} in the DMC step")
+    (OUT_DIR / "chip_smoke_profile.txt").write_text(
+        f"{smi}\n[5] flagship step\n{table}\n[9] DMC step\n"
+        f"{events9.table(sort_by='self_device_time_total', row_limit=40)}\n")
+
+    # 10. Dreamer.inference on the DMC model, the generators' acting step.
+    report["inference"] = {}
+    n_calls = 50
+    for Bi in (1, 8):
+        iobs = make_obs(torch, dconf, gen, device, T=1, B=Bi)
+        istate, inoise = dmodel.init_state(Bi), GeneratorNoise(device, seed=10)
+        for _ in range(3):
+            action, istate, imetrics = dmodel.inference(iobs, istate, inoise)
+        iobs["reset"][:] = False
+        torch.cuda.synchronize()
+        k1.LAUNCHES.reset()
+        t0 = time.perf_counter()
+        for _ in range(n_calls):
+            action, istate, imetrics = dmodel.inference(iobs, istate, inoise)
+            action_host = action.cpu()  # the generator steps its envs with it
+        call_us_i = (time.perf_counter() - t0) / n_calls * 1e6
+        i_rows, i_sched = dict(k1.LAUNCHES.by_rows), dict(k1.LAUNCHES.by_schedule)
+        report["inference"][Bi] = dict(us_per_call=call_us_i, launches_by_rows=i_rows,
+                                       launches_by_schedule=i_sched,
+                                       metrics={k: v.tolist() for k, v in imetrics.items()})
+        print(f"[10] inference B={Bi}: {call_us_i:.1f} us/call (host clock, action to host), "
+              f"K1 launches {i_rows} {i_sched}")
+        if i_sched != {"skinny": n_calls} or i_rows != {Bi: n_calls}:
+            raise AssertionError(f"inference B={Bi}: K1 launches {i_rows} {i_sched}, expected "
+                                 f"{n_calls} skinny [M={Bi}]")
+        if (tuple(action_host.shape) != (1, Bi, A) or not torch.isfinite(action_host).all()
+                or action_host.abs().max() > 1.0):
+            raise AssertionError(f"inference B={Bi}: action {action_host}")
+        if not all(tuple(v.shape) == (Bi,) and torch.isfinite(v).all() for v in imetrics.values()):
+            raise AssertionError(f"inference B={Bi}: metrics {imetrics}")
+        path_launches[("skinny", Bi, Hd)] = n_calls
+
+    # Launches by shape on each path: flagship (phase 4, 5 steps), DMC (phase
+    # 9, 5 steps) and inference (phase 10, 50 calls); 0 where no path runs it.
+    per_step = {(B, H): n_steps, (T * B, H): n_steps, (B, Hd): n_steps, (T * B, Hd): n_steps,
+                (1, Hd): n_calls, (8, Hd): n_calls}
     kernels = []
     for r in report["k1"]:
-        on_path = r["dtype"] == "bfloat16" and r["H"] == H
+        key = (r["schedule"], r["M"], r["H"]) if r["dtype"] == "bfloat16" else None
+        n = path_launches.get(key, 0)
         common = dict(route="cuda", source=K1_SOURCE, replaces=K1_REPLACES, bound_ms=r["bound_ms"],
                       bound_by=r["bound_by"], plain_ms=r["plain_ms"],
                       library_ms=r["gemm_library_ms"], unfused_ms=r["unfused_ms"])
         kernels.append(dict(name=f"gru_dv2.{r['schedule']}[M={r['M']},H={r['H']},{r['dtype']}]",
-                            launches=by_schedule.get(r["schedule"], 0) if on_path else 0,
+                            launches=n, launches_per_step=n / per_step[(r["M"], r["H"])] if n else 0,
                             max_abs_err=r["max_abs_err"], ms=r["ms"], ms_l2_warm=r["ms_l2_warm"],
                             **common))
         if "generic_ms" in r:
             kernels.append(dict(name=f"gru_dv2.generic[M={r['M']},H={r['H']},bfloat16]", launches=0,
-                                max_abs_err=r["generic_max_abs_err"], ms=r["generic_ms"], **common))
+                                launches_per_step=0, max_abs_err=r["generic_max_abs_err"],
+                                ms=r["generic_ms"], **common))
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,14 +1,20 @@
 """Actor-critic trained on imagined rollouts (GAE advantage, target critic).
 
 Counterpart of ``pydreamer_tpu/models/a2c.py``: ``gae_advantage`` (40-76),
-``_critic_losses`` with ``reality_weight`` and the detached ``critic_target``
-(136-171) and the reinforce actor loss (203-256). The actor, critic and
-frozen critic target are three ``MLP`` submodules; the caller owns the
-optimizer and the periodic target copy (``training/train_step.py``).
+the critic half with ``reality_weight`` and the frozen ``critic_target``
+(``_critic_losses``, 136-171), ``critic_training_step`` (173-186),
+``forward_actor`` with its four heads (188-198) and the reinforce and
+dynamics actor losses (203-256). :class:`Critic` holds the critic and its
+frozen target (the auxiliary critic of the world model has no actor, as
+``init_critic``, 124-134); :class:`ActorCritic` adds the actor. The caller
+owns the optimizer and the periodic target copy (``training/train_step.py``).
 
-Only ``actor_grad: reinforce`` with the ``onehot`` actor is ported; the
-dynamics gradient and the continuous action heads raise
-``NotImplementedError``.
+The critic target's parameters never take a gradient (``requires_grad`` is
+off), but the features it reads may: under ``actor_grad: dynamics`` the
+value target carries the gradient back through the imagined states into the
+actor, the world model being frozen by the caller. The critic regression
+sees detached features unless ``critic_features_grad`` (the auxiliary critic,
+whose loss shapes the world model's features).
 
 Sequence convention:
     features[0] -> actions[0] -> rewards[1], terminals[1], features[1] -> ...
@@ -21,12 +27,15 @@ from typing import Dict, Tuple
 import torch
 import torch.nn as nn
 
-from .distributions import OneHotCategorical
+from .distributions import OneHotCategorical, normal_tanh, tanh_normal, trunc_normal
 from .modules import MLP
 
-__all__ = ["ActorCritic", "gae_advantage"]
+__all__ = ["ActorCritic", "Critic", "gae_advantage", "ACTOR_DISTS"]
 
 GAE_IMPLS = ("scan", "unrolled")
+ACTOR_DISTS = {"onehot": OneHotCategorical, "normal_tanh": normal_tanh,
+               "tanh_normal": tanh_normal, "trunc_normal": trunc_normal}
+ACTOR_GRADS = ("reinforce", "dynamics")
 
 
 def gae_advantage(advantage: torch.Tensor, terminal1: torch.Tensor,
@@ -45,25 +54,19 @@ def gae_advantage(advantage: torch.Tensor, terminal1: torch.Tensor,
     return torch.stack(out)
 
 
-class ActorCritic(nn.Module):
-    """Actor, critic and frozen critic target (4-layer 400-wide MLPs)."""
+class Critic(nn.Module):
+    """Critic and frozen critic target (4-layer 400-wide MLPs)."""
 
-    def __init__(self, in_dim: int, out_actions: int, hidden_dim: int = 400,
-                 hidden_layers: int = 4, layer_norm: bool = True, gamma: float = 0.999,
-                 lambda_gae: float = 0.95, entropy_weight: float = 1e-3,
-                 actor_grad: str = "reinforce", actor_dist: str = "onehot",
-                 gae_impl: str = "scan", dtype=torch.float32):
+    def __init__(self, in_dim: int, hidden_dim: int = 400, hidden_layers: int = 4,
+                 layer_norm: bool = True, gamma: float = 0.999, lambda_gae: float = 0.95,
+                 critic_features_grad: bool = False, gae_impl: str = "scan",
+                 dtype=torch.float32):
         super().__init__()
-        if actor_grad != "reinforce":
-            raise NotImplementedError(f"actor_grad={actor_grad!r} is not ported yet")
-        if actor_dist != "onehot":
-            raise NotImplementedError(f"actor_dist={actor_dist!r} is not ported yet")
         if gae_impl not in GAE_IMPLS:
             raise ValueError(f"unknown gae_impl {gae_impl!r}; options: {GAE_IMPLS}")
         self.gamma = gamma
         self.lambda_ = lambda_gae
-        self.entropy_weight = entropy_weight
-        self.actor = MLP(in_dim, out_actions, hidden_dim, hidden_layers, layer_norm, dtype)
+        self.critic_features_grad = critic_features_grad
         self.critic = MLP(in_dim, 1, hidden_dim, hidden_layers, layer_norm, dtype)
         self.critic_target = MLP(in_dim, 1, hidden_dim, hidden_layers, layer_norm, dtype)
         self.critic_target.load_state_dict(self.critic.state_dict())
@@ -75,9 +78,6 @@ class ActorCritic(nn.Module):
         for tgt, src in zip(self.critic_target.parameters(), self.critic.parameters()):
             tgt.copy_(src)
 
-    def forward_actor(self, features: torch.Tensor) -> OneHotCategorical:
-        return OneHotCategorical(self.actor(features).float())
-
     def forward_value(self, features: torch.Tensor) -> torch.Tensor:
         return self.critic(features)
 
@@ -86,8 +86,7 @@ class ActorCritic(nn.Module):
         reward1 = rewards[1:]        # (H,M)
         terminal0 = terminals[:-1]
         terminal1 = terminals[1:]
-        with torch.no_grad():
-            value_t = self.critic_target(features)
+        value_t = self.critic_target(features)
         value0t = value_t[:-1]
         value1t = value_t[1:]
         advantage = -value0t + reward1 + self.gamma * (1.0 - terminal1) * value1t
@@ -98,10 +97,42 @@ class ActorCritic(nn.Module):
         # that continued past a predicted episode end.
         reality_weight = torch.cumprod(1.0 - terminal0, 0).detach()
 
-        value = self.critic(features.detach())
+        value = self.critic(features if self.critic_features_grad else features.detach())
         loss_critic = 0.5 * (value_target.detach() - value[:-1]).square()
         loss_critic = (loss_critic * reality_weight).mean()
         return loss_critic, value, value_target, advantage, advantage_gae, reality_weight
+
+    def critic_training_step(self, features, rewards, terminals):
+        """Critic-only step (the auxiliary critic on real data): returns
+        (loss_critic, metrics, tensors)."""
+        loss_critic, value, *_ = self._critic_losses(features, rewards, terminals)
+        metrics = dict(loss_critic=loss_critic.detach(),
+                       policy_value_im=value[:-1].mean().detach())
+        return loss_critic, metrics, dict(value=value.detach())
+
+
+class ActorCritic(Critic):
+    """Actor, critic and frozen critic target."""
+
+    def __init__(self, in_dim: int, out_actions: int, hidden_dim: int = 400,
+                 hidden_layers: int = 4, layer_norm: bool = True, gamma: float = 0.999,
+                 lambda_gae: float = 0.95, entropy_weight: float = 1e-3,
+                 actor_grad: str = "reinforce", actor_dist: str = "onehot",
+                 gae_impl: str = "scan", dtype=torch.float32):
+        super().__init__(in_dim, hidden_dim, hidden_layers, layer_norm, gamma, lambda_gae,
+                         gae_impl=gae_impl, dtype=dtype)
+        if actor_grad not in ACTOR_GRADS:
+            raise ValueError(f"unknown actor_grad {actor_grad!r}; options: {ACTOR_GRADS}")
+        if actor_dist not in ACTOR_DISTS:
+            raise ValueError(f"unknown actor_dist {actor_dist!r}; options: {sorted(ACTOR_DISTS)}")
+        self.entropy_weight = entropy_weight
+        self.actor_grad = actor_grad
+        self.actor_dist = actor_dist
+        actor_out = out_actions if actor_dist == "onehot" else 2 * out_actions
+        self.actor = MLP(in_dim, actor_out, hidden_dim, hidden_layers, layer_norm, dtype)
+
+    def forward_actor(self, features: torch.Tensor):
+        return ACTOR_DISTS[self.actor_dist](self.actor(features).float())
 
     def training_step(self,
                       features: torch.Tensor,   # (J,M,F) J=H+1
@@ -114,9 +145,15 @@ class ActorCritic(nn.Module):
          reality_weight) = self._critic_losses(features, rewards, terminals)
         value0 = value[:-1]
 
-        policy_distr = self.forward_actor(features[:-1].detach())
-        action_logprob = policy_distr.log_prob(actions.detach())
-        loss_policy = -action_logprob * advantage_gae.detach()
+        if self.actor_grad == "reinforce":
+            policy_distr = self.forward_actor(features[:-1].detach())
+            action_logprob = policy_distr.log_prob(actions.detach())
+            loss_policy = -action_logprob * advantage_gae.detach()
+        else:
+            # dynamics: the entropy and value terms reach the actor through
+            # the imagined states.
+            policy_distr = self.forward_actor(features[:-1])
+            loss_policy = -value_target
         policy_entropy = policy_distr.entropy()
         loss_actor = loss_policy - self.entropy_weight * policy_entropy
         loss_actor = (loss_actor * reality_weight).mean()

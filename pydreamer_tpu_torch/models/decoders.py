@@ -1,32 +1,34 @@
 """Decoder heads and the multi-head reconstruction loss.
 
 Counterparts of ``pydreamer_tpu/models/decoders.py``: ``ConvDecoder``
-(114-166), ``DenseBernoulliDecoder`` (219-240), ``DenseNormalDecoder``
-(243-277) and ``MultiDecoder.__call__``/``reward_terminal`` (305-424).
+(114-166), ``CatImageDecoder`` (169-216), ``DenseBernoulliDecoder``
+(219-240), ``DenseNormalDecoder`` with ``vector_head`` (243-277),
+``DenseCategoricalSupportDecoder`` (280-302) and ``MultiDecoder`` with
+``extra_metrics``, ``reward_terminal`` and ``image_forward`` (305-428).
 
 All heads follow the (T,B,I,F) feature layout: the target is broadcast over
 the IWAE axis and per-sample losses are aggregated with -logavgexp over I.
 Images are (...,H,W,C) at the boundary; the transposed convolutions run NCHW
 inside. ``conv_transpose_impl`` chose among XLA lowerings of the same math in
 the JAX package; it is accepted and every value maps to ``nn.ConvTranspose2d``.
-
-Not ported yet (they raise ``NotImplementedError``): ``CatImageDecoder``, the
-categorical reward head, the vecobs head and ``extra_metrics``.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import math
+from typing import Dict, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .distributions import Bernoulli, DiagNormal, Normal
-from .functions import flatten_batch, insert_dim, logavgexp, unflatten_batch
+from .distributions import (Bernoulli, CategoricalSupport, DiagNormal, Normal,
+                            support_to_categorical)
+from .functions import flatten_batch, insert_dim, logavgexp, nanmean, unflatten_batch
 from .modules import MLP, Dense
 
-__all__ = ["ConvDecoder", "DenseBernoulliDecoder", "DenseNormalDecoder", "MultiDecoder"]
+__all__ = ["ConvDecoder", "CatImageDecoder", "DenseBernoulliDecoder", "DenseNormalDecoder",
+           "DenseCategoricalSupportDecoder", "MultiDecoder"]
 
 TRANSPOSE_IMPLS = ("auto", "xla", "subpixel", "fused")
 
@@ -96,6 +98,45 @@ class ConvDecoder(nn.Module):
         return loss_tbi, loss_tb, decoded.mean(2)
 
 
+class CatImageDecoder(MLP):
+    """MLP decoder for categorical images, class axis last: (...,H,W,K) logits."""
+
+    def __init__(self, in_dim: int, out_shape: Tuple[int, int, int], hidden_dim: int = 400,
+                 hidden_layers: int = 2, layer_norm: bool = True, min_prob: float = 0.0,
+                 dtype=torch.float32):
+        super().__init__(in_dim, math.prod(out_shape), hidden_dim, hidden_layers, layer_norm, dtype)
+        self.out_shape = tuple(out_shape)
+        self.min_prob = min_prob
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, bd = flatten_batch(x, 1)
+        x = super().forward(x).reshape((x.shape[0],) + self.out_shape).float()
+        return unflatten_batch(x, bd)
+
+    def loss(self, logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+        """Cross-entropy summed over (H,W); target int (...,H,W) or one-hot."""
+        if logits.dim() == target.dim():
+            target = torch.argmax(target, -1)
+        logp = F.log_softmax(logits, -1)
+        if self.min_prob > 0:
+            prob = (1.0 - self.min_prob) * logp.exp() + self.min_prob / logits.shape[-1]
+            logp = prob.log()
+        nll = -logp.gather(-1, target.long().unsqueeze(-1)).squeeze(-1)
+        return nll.sum((-1, -2))
+
+    def training_step(self, features, target):
+        """Returns (loss_tbi, loss_tb, logits (T,B,H,W,K)): the I samples are
+        aggregated in log space and renormalized over the classes."""
+        I = features.shape[2]
+        logits = self(features)
+        loss_tbi = self.loss(logits, insert_dim(target, 2, I))
+        loss_tb = -logavgexp(-loss_tbi, 2)
+        logits = logits - torch.logsumexp(logits, -1, keepdim=True)
+        logits = torch.logsumexp(logits, 2)
+        logits = logits - torch.logsumexp(logits, -1, keepdim=True)
+        return loss_tbi, loss_tb, logits
+
+
 class DenseBernoulliDecoder(nn.Module):
     """Terminal-flag head: MLP -> Bernoulli(logits)."""
 
@@ -116,19 +157,26 @@ class DenseBernoulliDecoder(nn.Module):
 
 
 class DenseNormalDecoder(nn.Module):
-    """Fixed-sigma gaussian head. sigma = 1/sqrt(2 pi) makes loss == 0.5*MSE."""
+    """Fixed-sigma gaussian head. sigma = 1/sqrt(2 pi) makes loss == 0.5*MSE.
+
+    With ``vector_head`` the target keeps a trailing event axis even at
+    ``out_dim == 1`` (the vecobs head); scalar heads (reward) squeeze it.
+    """
 
     def __init__(self, in_dim: int, out_dim: int = 1, hidden_dim: int = 400,
                  hidden_layers: int = 2, layer_norm: bool = True, std: float = 0.3989422804,
-                 dtype=torch.float32):
+                 vector_head: bool = False, dtype=torch.float32):
         super().__init__()
         self.out_dim = out_dim
         self.std = std
+        self.vector_head = vector_head
         self.model = MLP(in_dim, out_dim, hidden_dim, hidden_layers, layer_norm, dtype=dtype)
 
     def forward(self, features: torch.Tensor):
         y = self.model(features).float()
-        if self.out_dim > 1:
+        if self.out_dim == 1 and self.vector_head:
+            y = y.unsqueeze(-1)
+        if self.out_dim > 1 or self.vector_head:
             return DiagNormal(y, torch.full_like(y, self.std), event_dims=1)
         return Normal(y, torch.full_like(y, self.std))
 
@@ -140,8 +188,29 @@ class DenseNormalDecoder(nn.Module):
         return loss_tbi, loss_tb, p.mean.mean(2)
 
 
+class DenseCategoricalSupportDecoder(nn.Module):
+    """Categorical head over a fixed scalar support (reward buckets)."""
+
+    def __init__(self, in_dim: int, support: Sequence[float] = (0.0, 1.0), hidden_dim: int = 400,
+                 hidden_layers: int = 2, layer_norm: bool = True, dtype=torch.float32):
+        super().__init__()
+        self.model = MLP(in_dim, len(support), hidden_dim, hidden_layers, layer_norm, dtype=dtype)
+        self.register_buffer("support", torch.tensor(support, dtype=torch.float32),
+                             persistent=False)
+
+    def forward(self, features: torch.Tensor) -> CategoricalSupport:
+        return CategoricalSupport(self.model(features), self.support)
+
+    def training_step(self, features, target):
+        I = features.shape[2]
+        p = self(features)
+        loss_tbi = -p.log_prob(insert_dim(target, 2, I))
+        loss_tb = -logavgexp(-loss_tbi, 2)
+        return loss_tbi, loss_tb, p.mean.mean(2)
+
+
 class MultiDecoder(nn.Module):
-    """Weighted multi-head reconstruction (image + reward + terminal)."""
+    """Weighted multi-head reconstruction (image + vecobs + reward + terminal)."""
 
     def __init__(self, features_dim: int, image_decoder, image_size: int, image_channels: int,
                  cnn_depth: int, image_decoder_layers: int, image_decoder_min_prob: float,
@@ -154,26 +223,37 @@ class MultiDecoder(nn.Module):
         if image_decoder == "cnn":
             self.image = ConvDecoder(features_dim, image_channels, cnn_depth,
                                      transpose_impl=transpose_impl, dtype=dtype)
+        elif image_decoder == "dense":
+            self.image = CatImageDecoder(features_dim, (image_size, image_size, image_channels),
+                                         hidden_layers=image_decoder_layers, layer_norm=layer_norm,
+                                         min_prob=image_decoder_min_prob, dtype=dtype)
         elif not image_decoder:
             self.image = None
         else:
-            raise NotImplementedError(f"image_decoder={image_decoder!r} is not ported yet")
+            raise ValueError(f"unknown image_decoder {image_decoder!r}")
         if reward_decoder_categorical:
-            raise NotImplementedError("the categorical reward decoder is not ported yet")
-        if vecobs_size:
-            raise NotImplementedError("the vecobs decoder is not ported yet")
-        self.reward = DenseNormalDecoder(features_dim, hidden_layers=reward_decoder_layers,
-                                         layer_norm=layer_norm, dtype=dtype)
+            self.reward = DenseCategoricalSupportDecoder(
+                features_dim, tuple(reward_decoder_categorical),
+                hidden_layers=reward_decoder_layers, layer_norm=layer_norm, dtype=dtype)
+        else:
+            self.reward = DenseNormalDecoder(features_dim, hidden_layers=reward_decoder_layers,
+                                             layer_norm=layer_norm, dtype=dtype)
         self.terminal = DenseBernoulliDecoder(features_dim, hidden_layers=terminal_decoder_layers,
                                               layer_norm=layer_norm, dtype=dtype)
+        self.vecobs = (DenseNormalDecoder(features_dim, vecobs_size, hidden_layers=4,
+                                          layer_norm=layer_norm, vector_head=True, dtype=dtype)
+                       if vecobs_size else None)
         self.image_weight = image_weight
+        self.vecobs_weight = vecobs_weight
         self.reward_weight = reward_weight
         self.terminal_weight = terminal_weight
 
     def forward(self, features, obs, extra_metrics: bool = False):
-        """Multi-head loss: returns (loss_reconstr_tbi, metrics, tensors)."""
-        if extra_metrics:
-            raise NotImplementedError("extra_metrics is not ported yet")
+        """Multi-head loss: returns (loss_reconstr_tbi, metrics, tensors).
+
+        ``extra_metrics`` adds the reward loss per reward bucket (per sign
+        without the categorical head) and the loss on terminal steps.
+        """
         tensors: Dict[str, torch.Tensor] = {}
         metrics: Dict[str, torch.Tensor] = {}
         loss_reconstr = 0.0
@@ -184,6 +264,14 @@ class MultiDecoder(nn.Module):
             metrics["loss_image"] = loss_image.mean().detach()
             tensors["loss_image"] = loss_image.detach()
             tensors["image_rec"] = image_rec.detach()
+
+        if self.vecobs is not None:
+            loss_vecobs_tbi, loss_vecobs, vecobs_rec = self.vecobs.training_step(
+                features, obs["vecobs"])
+            loss_reconstr = loss_reconstr + self.vecobs_weight * loss_vecobs_tbi
+            metrics["loss_vecobs"] = loss_vecobs.mean().detach()
+            tensors["loss_vecobs"] = loss_vecobs.detach()
+            tensors["vecobs_rec"] = vecobs_rec.detach()
 
         loss_reward_tbi, loss_reward, reward_rec = self.reward.training_step(features, obs["reward"])
         loss_reconstr = loss_reconstr + self.reward_weight * loss_reward_tbi
@@ -197,8 +285,28 @@ class MultiDecoder(nn.Module):
         metrics["loss_terminal"] = loss_terminal.mean().detach()
         tensors["loss_terminal"] = loss_terminal.detach()
         tensors["terminal_rec"] = terminal_rec.detach()
+
+        if extra_metrics:
+            reward = obs["reward"]
+            if isinstance(self.reward, DenseCategoricalSupportDecoder):
+                buckets = support_to_categorical(reward, self.reward.support)
+                parts = [(f"reward{i}", loss_reward, buckets == i)
+                         for i in range(len(self.reward.support))]
+            else:
+                parts = [(f"reward{sig}", loss_reward, torch.sign(reward) == sig)
+                         for sig in (-1, 1)]
+            parts.append(("terminal1", loss_terminal, obs["terminal"] > 0))
+            for name, loss, mask in parts:
+                mask = mask.float()
+                masked = loss.detach() * mask / mask  # nan off the mask
+                metrics[f"loss_{name}"] = nanmean(masked)
+                tensors[f"loss_{name}"] = masked
         return loss_reconstr, metrics, tensors
 
     def reward_terminal(self, features):
         """Reward/terminal means for imagination rollouts (dream)."""
         return self.reward(features).mean, self.terminal(features).mean
+
+    def image_forward(self, features):
+        """Raw image head output (dream-log decoding)."""
+        return self.image(features)

@@ -1,41 +1,45 @@
 """Dreamer agent: world model + actor-critic trained in imagination.
 
 Counterpart of ``pydreamer_tpu/models/dreamer.py``: ``prepare_obs`` (50-59),
-``WorldModel.training_step`` (189-264), ``Dreamer.dream`` (328-376) and
-``Dreamer.training_step`` (380-447). ``Dreamer`` is one ``nn.Module`` whose
-submodules are ``wm`` (encoder, core, decoder), ``probe`` and ``ac`` (actor,
-critic, critic_target), the JAX params tree's top-level keys.
+``WorldModel.forward`` and ``training_step`` with the IWAE sampled KL, the
+auxiliary critic and ``do_image_pred`` (182-264), ``Dreamer.inference``
+(307-324), ``Dreamer.dream`` (328-376) and ``Dreamer.training_step`` with the
+``do_dream_tensors`` rollout (380-447). ``Dreamer`` is one ``nn.Module`` whose
+submodules are ``wm`` (encoder, core, decoder and, with ``aux_critic``,
+``ac_aux``), ``probe`` and ``ac`` (actor, critic, critic_target), the JAX
+params tree's top-level keys.
 
 Gradient routing: each loss touches only its own parameters, so one
 ``backward()`` over the summed losses yields the partitioned gradients:
-  * loss_model:  wm only
+  * loss_model:  wm only (the auxiliary critic's loss is part of it)
   * loss_probe:  probe only (features detached unless probe_gradients)
-  * loss_actor:  actor only (with ``actor_grad: reinforce`` the whole dream
-    is detached, so it runs under ``torch.no_grad()``; K1 still runs there,
-    at M = T*B*I rows)
+  * loss_actor:  actor only. The dream starts from detached states and runs
+    with the world model frozen (``requires_grad`` off on its parameters
+    while the dream runs, the counterpart of JAX's ``stop_gradient`` on the
+    wm params). With ``actor_grad: reinforce`` the whole dream is detached,
+    so it runs under ``torch.no_grad()``; with ``dynamics`` it carries the
+    gradient through the frozen world model (K1 included) into the actor.
   * loss_critic: critic only
-
-Out of scope so far (``NotImplementedError``): ``actor_grad: dynamics``,
-``do_image_pred``, ``do_dream_tensors``, ``aux_critic``, ``iwae_samples > 1``
-and ``inference``.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
 
 from ..device import compute_dtype, resolve_device
-from .a2c import ActorCritic
+from .a2c import ActorCritic, Critic
 from .decoders import MultiDecoder
 from .encoders import MultiEncoder
 from .functions import logavgexp, unflatten_batch
 from .probes import make_probe
-from .rssm import RSSMCore, init_state, to_feature, z_noise_shape
+from .rssm import (RSSMCore, feature_replace_z, init_state, to_feature, z_noise_kind,
+                   z_noise_shape)
 
-__all__ = ["Dreamer", "WorldModel", "prepare_obs"]
+__all__ = ["Dreamer", "WorldModel", "prepare_obs", "frozen"]
 
 
 def prepare_obs(obs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -46,18 +50,32 @@ def prepare_obs(obs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return obs
 
 
+@contextlib.contextmanager
+def frozen(module: nn.Module):
+    """Turn ``requires_grad`` off on the module's parameters for the block and
+    restore each parameter's own flag after it. Autograd records the flag
+    when an op runs, so ops run inside the block take no gradient to these
+    parameters, whenever the backward comes."""
+    flags = [(p, p.requires_grad) for p in module.parameters()]
+    module.requires_grad_(False)
+    try:
+        yield
+    finally:
+        for p, flag in flags:
+            p.requires_grad_(flag)
+
+
 class WorldModel(nn.Module):
     """Encoder -> RSSM -> multi-head decoder with KL-balanced ELBO."""
 
     def __init__(self, conf, dtype: torch.dtype):
         super().__init__()
-        if conf.aux_critic:
-            raise NotImplementedError("aux_critic is not ported yet")
         self.deter_dim = conf.deter_dim
         self.stoch_dim = conf.stoch_dim
         self.stoch_discrete = conf.stoch_discrete
         self.kl_weight = conf.kl_weight
         self.kl_balance = None if conf.kl_balance == 0.5 else conf.kl_balance
+        self.aux_critic_weight = conf.aux_critic_weight
         self.features_dim = conf.deter_dim + conf.stoch_dim * (conf.stoch_discrete or 1)
 
         self.encoder = MultiEncoder(
@@ -77,24 +95,49 @@ class WorldModel(nn.Module):
             self.encoder.out_dim, conf.action_dim, conf.deter_dim, conf.stoch_dim,
             conf.stoch_discrete, conf.hidden_dim, conf.gru_layers, conf.gru_type,
             conf.layer_norm, dtype)
+        # The auxiliary critic on real data: critic only, its loss reaches the
+        # world model's features (critic_features_grad).
+        self.ac_aux = (Critic(self.features_dim, layer_norm=conf.layer_norm, gamma=conf.gamma_aux,
+                              lambda_gae=conf.lambda_gae_aux, critic_features_grad=True,
+                              gae_impl=conf.get("gae_impl", "scan"), dtype=dtype)
+                       if conf.aux_critic else None)
 
-    def training_step(self, obs, in_state, z_noise, iwae_samples: int = 1,
-                      do_open_loop: bool = False):
-        """Returns (loss, features, states, out_state, metrics, tensors)."""
-        if iwae_samples != 1:
-            raise NotImplementedError("iwae_samples > 1 is not ported yet")
+    def z_noise(self, noise, name: str, prefix) -> torch.Tensor:
+        """Latent noise for ``prefix`` states, of the latent's kind."""
+        return noise.draw(name, z_noise_shape(prefix, self.stoch_dim, self.stoch_discrete),
+                          z_noise_kind(self.stoch_discrete))
+
+    def forward(self, obs, in_state, noise):
+        """Features + new state only (the acting path)."""
+        T, B = obs["action"].shape[:2]
         embed = self.encoder(obs)
-        prior, post, _, features, states, out_state = self.core(
-            embed, obs["action"], obs["reset"], in_state, z_noise, iwae_samples, do_open_loop)
+        _, _, _, features, _, out_state = self.core(
+            embed, obs["action"], obs["reset"], in_state,
+            self.z_noise(noise, "posterior_z", (T, B)), 1, False)
+        return features, out_state
+
+    def training_step(self, obs, in_state, noise, iwae_samples: int = 1,
+                      do_open_loop: bool = False, do_image_pred: bool = False):
+        """Returns (loss, features, states, out_state, metrics, tensors)."""
+        I = iwae_samples
+        T, B = obs["action"].shape[:2]
+        embed = self.encoder(obs)
+        prior, post, post_samples, features, states, out_state = self.core(
+            embed, obs["action"], obs["reset"], in_state,
+            self.z_noise(noise, "posterior_z", (T, B * I)), I, do_open_loop)
 
         loss_reconstr, metrics, tensors = self.decoder(features, obs)
 
-        # KL loss with balancing.
+        # KL loss with balancing; the sampled KL for the IWAE bound.
         zdistr = self.core.zdistr
         dprior = zdistr(prior)
         dpost = zdistr(post)
         loss_kl_exact = dpost.kl_to(dprior)  # (T,B,I)
-        if not self.kl_balance:
+        if I > 1:
+            z = (post_samples.reshape(post.shape[:-1] + (self.stoch_dim, self.stoch_discrete))
+                 if self.stoch_discrete else post_samples)
+            loss_kl = dpost.log_prob(z) - dprior.log_prob(z)
+        elif not self.kl_balance:
             loss_kl = loss_kl_exact
         else:
             loss_kl_postgrad = dpost.kl_to(zdistr(prior.detach()))
@@ -102,9 +145,17 @@ class WorldModel(nn.Module):
             loss_kl = ((1 - self.kl_balance) * loss_kl_postgrad
                        + self.kl_balance * loss_kl_priograd)
 
+        loss_critic_aux = 0.0
+        if self.ac_aux is not None:
+            loss_critic_aux, metrics_ac, tensors_ac = self.ac_aux.critic_training_step(
+                features[:, :, 0], obs["reward"], obs["terminal"])
+            metrics.update(loss_critic_aux=metrics_ac["loss_critic"],
+                           policy_value_aux=metrics_ac["policy_value_im"])
+            tensors.update(policy_value_aux=tensors_ac["value"])
+
         loss_model_tbi = self.kl_weight * loss_kl + loss_reconstr
         loss_model_tb = -logavgexp(-loss_model_tbi, 2)
-        loss = loss_model_tb.mean()
+        loss = loss_model_tb.mean() + self.aux_critic_weight * loss_critic_aux
 
         loss_kl_metric = -logavgexp(-loss_kl_exact.detach(), 2)
         entropy_prior = dprior.entropy().detach().mean(2)
@@ -115,6 +166,21 @@ class WorldModel(nn.Module):
                        loss_kl=loss_kl_metric.mean(),
                        entropy_prior=entropy_prior.mean(),
                        entropy_post=entropy_post.mean())
+
+        if do_image_pred:
+            # Decode from prior samples: open-loop quality metrics only.
+            with torch.no_grad():
+                dprior_sg = zdistr(prior.detach())
+                pz = self.z_noise(noise, "pred_z", (T, B, I))
+                prior_samples = dprior_sg.sample_noise(pz).reshape(post_samples.shape)
+                features_prior = feature_replace_z(features.detach(), prior_samples)
+                _, mets, tens = self.decoder(features_prior, obs, extra_metrics=True)
+            metrics.update({k.replace("loss_", "logprob_"): v
+                            for k, v in mets.items() if k.startswith("loss_")})
+            tensors.update({k.replace("loss_", "logprob_"): v
+                            for k, v in tens.items() if k.startswith("loss_")})
+            tensors.update({k.replace("_rec", "_pred"): v
+                            for k, v in tens.items() if k.endswith("_rec")})
         return loss, features, states, out_state, metrics, tensors
 
 
@@ -130,8 +196,6 @@ class Dreamer(nn.Module):
         super().__init__()
         if conf.action_dim <= 0:
             raise ValueError("Need to set action_dim to match environment")
-        if conf.iwae_samples != 1:
-            raise NotImplementedError("iwae_samples > 1 is not ported yet")
         self.conf = conf
         self.device = resolve_device(device)
         self.dtype = compute_dtype(conf)
@@ -152,31 +216,58 @@ class Dreamer(nn.Module):
         return init_state(batch_size, self.conf.deter_dim, self.conf.stoch_dim,
                           self.conf.stoch_discrete, device=self.device)
 
+    # -- inference (acting) ----------------------------------------------
+
+    @torch.no_grad()
+    def inference(self, obs, in_state, noise):
+        """One acting step: obs (T=1,B,...) -> (action (1,B,A), out_state,
+        metrics). The metrics are per slot, (B,): the batched generator
+        attributes them to each env's episode."""
+        obs = prepare_obs(obs)
+        features, out_state = self.wm(obs, in_state, noise)
+        feature = features[:, :, 0]  # (1,B,F)
+        action_distr = self.ac.forward_actor(feature)
+        value = self.ac.forward_value(feature)
+        action = action_distr.sample_noise(noise.draw(
+            "action", tuple(feature.shape[:2]) + (self.conf.action_dim,), action_distr.NOISE))
+        metrics = dict(policy_value=value[0],
+                       policy_entropy=action_distr.entropy()[0],
+                       action_prob=action_distr.log_prob(action).exp()[0])
+        return action, out_state, metrics
+
     # -- imagination ------------------------------------------------------
 
-    def dream(self, in_state, imag_horizon: int, noise):
-        """H-step open-loop rollout through the prior with the policy.
+    def dream(self, in_state, imag_horizon: int, noise, dynamics_gradients: bool = False,
+              prefix: str = "dream"):
+        """H-step open-loop rollout through the prior with the policy, the
+        world model frozen. Draws ``<prefix>_action`` and ``<prefix>_z`` noise.
 
         Returns (features (H+1,M,F), actions (H,M,A), rewards (H+1,M),
-        terminals (H+1,M)). The caller runs it under ``torch.no_grad()`` for
-        ``actor_grad: reinforce``.
+        terminals (H+1,M)). With ``dynamics_gradients`` the actions are
+        reparameterized samples (straight-through for one-hot); the caller
+        runs it under ``torch.no_grad()`` otherwise.
         """
         M = in_state[0].shape[0]
-        zshape = z_noise_shape((M,), self.wm.stoch_dim, self.wm.stoch_discrete)
+        action_shape = (M, self.conf.action_dim)
         state = in_state
         features, actions = [], []
-        for t in range(imag_horizon):
-            feature = to_feature(*state)
-            action_dist = self.ac.forward_actor(feature)
-            action = action_dist.sample_noise(
-                noise.dream_action(t, tuple(action_dist.logits.shape)))
-            _, state = self.wm.core.prior_step(state, action, None, noise.dream_z(t, zshape))
-            features.append(feature)
-            actions.append(action)
-        features.append(to_feature(*state))
-        features = torch.stack(features)
-        actions = torch.stack(actions)
-        rewards, terminals = self.wm.decoder.reward_terminal(features)
+        with frozen(self.wm):
+            for t in range(imag_horizon):
+                feature = to_feature(*state)
+                action_dist = self.ac.forward_actor(feature)
+                eps = noise.draw(f"{prefix}_action", action_shape, action_dist.NOISE, t)
+                action = (action_dist.rsample_noise(eps) if dynamics_gradients
+                          else action_dist.sample_noise(eps))
+                zn = noise.draw(f"{prefix}_z", z_noise_shape((M,), self.wm.stoch_dim,
+                                                             self.wm.stoch_discrete),
+                                z_noise_kind(self.wm.stoch_discrete), t)
+                _, state = self.wm.core.prior_step(state, action, None, zn)
+                features.append(feature)
+                actions.append(action)
+            features.append(to_feature(*state))
+            features = torch.stack(features)
+            actions = torch.stack(actions)
+            rewards, terminals = self.wm.decoder.reward_terminal(features)
         return features, actions, rewards, terminals
 
     # -- training ---------------------------------------------------------
@@ -192,21 +283,14 @@ class Dreamer(nn.Module):
         Returns (losses, out_state, metrics, tensors, dream_tensors) where
         losses = {loss_model, loss_probe, loss_actor, loss_critic}.
         """
-        if do_image_pred:
-            raise NotImplementedError("do_image_pred is not ported yet")
-        if do_dream_tensors:
-            raise NotImplementedError("do_dream_tensors is not ported yet")
         obs = prepare_obs(obs)
         I = int(iwae_samples or self.conf.iwae_samples)
         H = int(imag_horizon or self.imag_horizon)
         T, B = obs["action"].shape[:2]
 
-        # World model; the posterior noise for the whole loop is drawn up front.
-        z_noise = noise.posterior_z(z_noise_shape((T, B * I), self.wm.stoch_dim,
-                                                  self.wm.stoch_discrete))
-        loss_model, features, states, out_state, metrics, tensors = \
-            self.wm.training_step(obs, in_state, z_noise, iwae_samples=I,
-                                  do_open_loop=do_open_loop)
+        loss_model, features, states, out_state, metrics, tensors = self.wm.training_step(
+            obs, in_state, noise, iwae_samples=I, do_open_loop=do_open_loop,
+            do_image_pred=do_image_pred)
 
         # Probe (detached features unless probe_gradients).
         features_probe = features if self.probe_gradients else features.detach()
@@ -214,16 +298,28 @@ class Dreamer(nn.Module):
         metrics.update(metrics_probe)
         tensors.update(tensors_probe)
 
-        # Imagination + actor-critic. reinforce: the dream is detached whole.
+        # Imagination + actor-critic; reinforce detaches the dream whole.
         in_state_dream = tuple(s.detach().reshape((-1,) + tuple(s.shape[3:])) for s in states)
-        with torch.no_grad():
-            features_dream, actions_dream, rewards_dream, terminals_dream = \
-                self.dream(in_state_dream, H, noise)
-        (loss_actor, loss_critic), metrics_ac, tensors_ac = self.ac.training_step(
-            features_dream, actions_dream, rewards_dream, terminals_dream)
+        dynamics = self.ac.actor_grad == "dynamics"
+        with torch.set_grad_enabled(dynamics and torch.is_grad_enabled()):
+            dream = self.dream(in_state_dream, H, noise, dynamics)
+        (loss_actor, loss_critic), metrics_ac, tensors_ac = self.ac.training_step(*dream)
         metrics.update(metrics_ac)
         tensors.update(policy_value=unflatten_batch(tensors_ac["value"][0], (T, B, I)).mean(-1))
 
+        # Dream log sample: a T-1 step rollout from the first state, aligned
+        # with the real batch for side-by-side logging.
+        dream_tensors = {}
+        if do_dream_tensors and self.conf.image_decoder:
+            with torch.no_grad():
+                in_state_log = tuple(s.detach()[0, :, 0] for s in states)
+                f_d, a_d, r_d, t_d = self.dream(in_state_log, T - 1, noise, prefix="log")
+                image_dream = self.wm.decoder.image_forward(f_d)
+                _, _, tens_ac = self.ac.training_step(f_d, a_d, r_d, t_d)
+            dream_tensors = dict(action_pred=torch.cat([obs["action"][:1].float(), a_d]),
+                                 reward_pred=r_d, terminal_pred=t_d, image_pred=image_dream,
+                                 **tens_ac)
+
         losses = dict(loss_model=loss_model, loss_probe=loss_probe,
                       loss_actor=loss_actor, loss_critic=loss_critic)
-        return losses, out_state, metrics, tensors, {}
+        return losses, out_state, metrics, tensors, dream_tensors

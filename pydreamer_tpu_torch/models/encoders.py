@@ -1,7 +1,8 @@
 """Observation encoders.
 
 Counterparts of ``pydreamer_tpu/models/encoders.py``: ``ConvEncoder`` (4x
-Conv k4 s2 VALID + ELU, 90-116) and ``MultiEncoder`` (145-208). Images are
+Conv k4 s2 VALID + ELU, 90-116), ``DenseEncoder`` (119-142) and
+``MultiEncoder`` with the vecobs branch (145-208). Images are
 (T,B,H,W,C) at the boundary, as in the JAX package; inside, the convolutions
 run NCHW and the last feature map is flattened in (H,W,C) order so that the
 embedding matches the JAX layout element for element.
@@ -18,8 +19,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .functions import flatten_batch, unflatten_batch
+from .modules import MLP
 
-__all__ = ["ConvEncoder", "MultiEncoder", "ConvS2"]
+__all__ = ["ConvEncoder", "DenseEncoder", "MultiEncoder", "ConvS2"]
 
 CONV_IMPLS = ("auto", "xla", "s2d")
 
@@ -68,32 +70,61 @@ class ConvEncoder(nn.Module):
         return unflatten_batch(x, bd)
 
 
-class MultiEncoder(nn.Module):
-    """Image encoder with optional reward/terminal input planes.
+class DenseEncoder(MLP):
+    """Flatten (H,W,C) -> MLP -> ELU (small categorical images)."""
 
-    Only the ``cnn`` image encoder is ported; ``dense`` and the vecobs branch
-    raise ``NotImplementedError``.
-    """
+    def __init__(self, in_dim: int, out_dim: int = 256, hidden_dim: int = 400,
+                 hidden_layers: int = 2, layer_norm: bool = True, dtype=torch.float32):
+        # The JAX module always has its first hidden layer.
+        super().__init__(in_dim, out_dim, hidden_dim, max(hidden_layers, 1), layer_norm, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, bd = flatten_batch(x, 3)
+        return unflatten_batch(F.elu(super().forward(x.reshape(x.shape[0], -1))), bd)
+
+
+class MultiEncoder(nn.Module):
+    """Image (``cnn`` or ``dense``) and vecobs encoders, embeddings
+    concatenated; with ``reward_input`` the reward and terminal are appended
+    to the image as two constant planes."""
 
     def __init__(self, image_encoder, image_size: int, image_channels: int,
                  cnn_depth: int, image_encoder_layers: int, vecobs_size: int,
                  reward_input: bool, conv_impl: str = "auto", layer_norm: bool = True,
                  dtype=torch.float32):
         super().__init__()
-        if image_encoder != "cnn":
-            raise NotImplementedError(f"image_encoder={image_encoder!r} is not ported yet")
-        if vecobs_size:
-            raise NotImplementedError("the vecobs encoder branch is not ported yet")
         self.reward_input = reward_input
+        self.image_encoder = image_encoder
         channels = image_channels + (2 if reward_input else 0)
-        # Named as the JAX param tree names the auto-named flax submodule.
-        self.ConvEncoder_0 = ConvEncoder(channels, cnn_depth, conv_impl=conv_impl, dtype=dtype)
-        self.out_dim = self.ConvEncoder_0.out_dim
+        self.out_dim = 0
+        # Named as the JAX param tree names the auto-named flax submodules.
+        if image_encoder == "cnn":
+            self.ConvEncoder_0 = ConvEncoder(channels, cnn_depth, conv_impl=conv_impl, dtype=dtype)
+            self.out_dim += self.ConvEncoder_0.out_dim
+        elif image_encoder == "dense":
+            self.DenseEncoder_0 = DenseEncoder(image_size * image_size * channels, 256,
+                                               hidden_layers=image_encoder_layers,
+                                               layer_norm=layer_norm, dtype=dtype)
+            self.out_dim += 256
+        elif image_encoder:
+            raise ValueError(f"unknown image_encoder {image_encoder!r}")
+        self.encoder_vecobs = (MLP(vecobs_size, 256, 400, 2, layer_norm, dtype)
+                               if vecobs_size else None)
+        if vecobs_size:
+            self.out_dim += 256
+        if self.out_dim == 0:
+            raise ValueError("Either image_encoder or vecobs_size must be set")
 
     def forward(self, obs) -> torch.Tensor:
-        image = obs["image"]  # (T,B,H,W,C)
-        if self.reward_input:
-            T, B, H, W, _ = image.shape
-            plane = lambda v: v[:, :, None, None, None].to(image.dtype).expand(T, B, H, W, 1)
-            image = torch.cat([image, plane(obs["reward"]), plane(obs["terminal"])], -1)
-        return self.ConvEncoder_0(image)
+        embeds = []
+        if self.image_encoder:
+            image = obs["image"]  # (T,B,H,W,C)
+            if self.reward_input:
+                T, B, H, W, _ = image.shape
+                plane = lambda v: v[:, :, None, None, None].to(image.dtype).expand(T, B, H, W, 1)
+                image = torch.cat([image, plane(obs["reward"]), plane(obs["terminal"])], -1)
+            enc = self.ConvEncoder_0 if self.image_encoder == "cnn" else self.DenseEncoder_0
+            embeds.append(enc(image))
+        if self.encoder_vecobs is not None:
+            embeds.append(self.encoder_vecobs(obs["vecobs"]))
+        return torch.cat(embeds, -1)

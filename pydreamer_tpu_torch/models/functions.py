@@ -1,6 +1,6 @@
 """Structure/shape utilities shared by all models.
 
-Counterparts of ``pydreamer_tpu/models/functions.py:31-122``. Shape
+Counterparts of ``pydreamer_tpu/models/functions.py:31-120``. Shape
 vocabulary: T = sequence length, B = batch, I = IWAE samples, A = action dim,
 E = embed dim, F = feature dim (deter + stoch), H = imagination horizon,
 M = T*B*I.
@@ -11,11 +11,13 @@ from __future__ import annotations
 import math
 from typing import Iterable, Tuple
 
+import numpy as np
 import torch
 
 __all__ = [
     "flatten_batch", "unflatten_batch", "insert_dim", "expand_iwae",
-    "logavgexp", "nanmean", "global_norm",
+    "logavgexp", "nanmean", "clip_rewards", "clip_rewards_np", "symlog", "symexp",
+    "global_norm",
 ]
 
 
@@ -63,6 +65,40 @@ def nanmean(x: torch.Tensor) -> torch.Tensor:
     """Mean ignoring NaNs (0 when every entry is NaN)."""
     mask = ~torch.isnan(x)
     return torch.nansum(x) / mask.sum().clamp(min=1)
+
+
+def symlog(x: torch.Tensor) -> torch.Tensor:
+    return torch.sign(x) * torch.log1p(x.abs())
+
+
+def symexp(x: torch.Tensor) -> torch.Tensor:
+    return torch.sign(x) * (torch.exp(x.abs()) - 1.0)
+
+
+def clip_rewards(x: torch.Tensor, mode: str | None = None) -> torch.Tensor:
+    """Reward squashing: none, ``tanh``, ``log1p`` or ``symlog``."""
+    if not mode:
+        return x
+    if mode == "tanh":
+        return torch.tanh(x)
+    if mode == "log1p":
+        return torch.log1p(x)
+    if mode == "symlog":
+        return symlog(x)
+    raise ValueError(f"unknown clip_rewards mode {mode!r}")
+
+
+def clip_rewards_np(x, mode: str | None = None):
+    """The numpy version, for host-side preprocessing."""
+    if not mode:
+        return x
+    if mode == "tanh":
+        return np.tanh(x)
+    if mode == "log1p":
+        return np.log1p(x)
+    if mode == "symlog":
+        return np.sign(x) * np.log1p(np.abs(x))
+    raise ValueError(f"unknown clip_rewards mode {mode!r}")
 
 
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:

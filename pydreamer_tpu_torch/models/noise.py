@@ -1,14 +1,21 @@
-"""Noise sources for the train step.
+"""Noise sources for the train step and the acting step.
 
 JAX draws its noise from keys (``fold_in(key, step)`` and splits), and
-PyTorch cannot reproduce those streams. So the port's train step takes an
-explicit noise source with three draws, all standard gumbel for the discrete
-latents and the one-hot actor:
+PyTorch cannot reproduce those streams. So the port's entry points take an
+explicit noise source. Every draw is ``draw(name, shape, kind, t=None)``:
+``kind`` is the distribution's ``NOISE`` (``"gumbel"``, ``"normal"`` or
+``"uniform"``, see ``models/distributions.py``) and ``t`` the step of a
+rollout. The names, in the order ``Dreamer`` asks for them:
 
-* ``posterior_z(shape)``: the posterior-loop latent noise (T, B*I, S, K),
-  drawn up front for the whole loop (rssm.py:52-65, 199);
-* ``dream_action(t, shape)``: the action noise of dream step t, (M, A);
-* ``dream_z(t, shape)``: the prior latent noise of dream step t, (M, S, K).
+* ``posterior_z``: the posterior-loop latent noise (T, B*I, S, K), drawn up
+  front for the whole loop (rssm.py:52-65, 199); gumbel for discrete latents,
+  normal otherwise;
+* ``pred_z``: the prior sample of ``do_image_pred`` (T, B, I, S, K);
+* ``dream_action`` / ``dream_z``: the action and prior-latent noise of dream
+  step t, (M, A) and (M, S, K);
+* ``log_action`` / ``log_z``: the same for the ``do_dream_tensors`` rollout
+  (T-1 steps at M = B);
+* ``action``: the action noise of ``Dreamer.inference``, (1, B, A).
 
 :class:`GeneratorNoise` draws them from a ``torch.Generator`` on the device;
 :class:`ReplayNoise` feeds arrays computed elsewhere (the parity tests replay
@@ -24,51 +31,45 @@ import torch
 
 from .distributions import gumbel_from_uniform
 
-__all__ = ["GeneratorNoise", "ReplayNoise"]
+__all__ = ["GeneratorNoise", "ReplayNoise", "NOISE_KINDS"]
+
+NOISE_KINDS = ("gumbel", "normal", "uniform")
 
 
 class GeneratorNoise:
-    """Standard gumbel noise from a ``torch.Generator`` on ``device``."""
+    """Standard noise of each kind from a ``torch.Generator`` on ``device``."""
 
     def __init__(self, device: torch.device | str, seed: int = 0):
         self.device = torch.device(device)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
-    def _gumbel(self, shape: Sequence[int]) -> torch.Tensor:
-        u = torch.rand(tuple(shape), generator=self.generator, device=self.device)
-        return gumbel_from_uniform(u)
-
-    def posterior_z(self, shape):
-        return self._gumbel(shape)
-
-    def dream_action(self, t: int, shape):
-        return self._gumbel(shape)
-
-    def dream_z(self, t: int, shape):
-        return self._gumbel(shape)
+    def draw(self, name: str, shape: Sequence[int], kind: str,
+             t: Optional[int] = None) -> torch.Tensor:
+        shape = tuple(shape)
+        if kind == "normal":
+            return torch.randn(shape, generator=self.generator, device=self.device)
+        u = torch.rand(shape, generator=self.generator, device=self.device)
+        if kind == "uniform":
+            return u
+        if kind == "gumbel":
+            return gumbel_from_uniform(u)
+        raise ValueError(f"unknown noise kind {kind!r}; options: {NOISE_KINDS}")
 
 
 class ReplayNoise:
     """Replays fixed noise arrays as CPU tensors.
 
-    ``arrays`` holds ``posterior_z`` (T,B*I,S,K), ``dream_action`` (H,M,A) and
-    ``dream_z`` (H,M,S,K); each draw checks that the shape asked for matches.
+    ``arrays[name]`` holds the whole draw, or for a rollout (``t`` given) all
+    its steps stacked on a leading axis; each draw checks that the shape asked
+    for matches. The kind is the caller's business: the arrays hold it.
     """
 
     def __init__(self, arrays: Dict[str, np.ndarray]):
         self.arrays = {k: torch.from_numpy(np.array(v, np.float32)) for k, v in arrays.items()}
 
-    def _get(self, name: str, shape, t: Optional[int] = None) -> torch.Tensor:
+    def draw(self, name: str, shape: Sequence[int], kind: str,
+             t: Optional[int] = None) -> torch.Tensor:
         x = self.arrays[name] if t is None else self.arrays[name][t]
         if tuple(x.shape) != tuple(shape):
             raise ValueError(f"replayed {name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
         return x
-
-    def posterior_z(self, shape):
-        return self._get("posterior_z", shape)
-
-    def dream_action(self, t: int, shape):
-        return self._get("dream_action", shape, t)
-
-    def dream_z(self, t: int, shape):
-        return self._get("dream_z", shape, t)

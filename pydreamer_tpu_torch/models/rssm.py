@@ -24,12 +24,13 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .distributions import OneHotCategorical, diag_normal
+from .distributions import DiagNormal, OneHotCategorical, diag_normal
 from .functions import expand_iwae
 from .modules import Dense, Norm
 from .rnn import GRUCellStack
 
-__all__ = ["RSSMCell", "RSSMCore", "init_state", "to_feature", "z_noise_shape"]
+__all__ = ["RSSMCell", "RSSMCore", "init_state", "to_feature", "feature_replace_z",
+           "z_noise_shape", "z_noise_kind"]
 
 State = Tuple[torch.Tensor, torch.Tensor]  # (h: (B,D), z: (B,S*K))
 
@@ -47,6 +48,17 @@ def init_state(batch_size: int, deter_dim: int, stoch_dim: int, stoch_discrete: 
 
 def to_feature(h: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     return torch.cat([h, z], -1)
+
+
+def feature_replace_z(features: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """Swap the stochastic part of features (decoding from prior samples)."""
+    h = features[..., : features.shape[-1] - z.shape[-1]]
+    return torch.cat([h, z], -1)
+
+
+def z_noise_kind(stoch_discrete: int) -> str:
+    """The noise the latent distribution samples from (``NOISE`` of its class)."""
+    return OneHotCategorical.NOISE if stoch_discrete else DiagNormal.NOISE
 
 
 def z_noise_shape(prefix: Tuple[int, ...], stoch_dim: int, stoch_discrete: int) -> Tuple[int, ...]:

@@ -3,7 +3,8 @@
 Counterpart of ``pydreamer_tpu/training/train_step.py:53-162``:
 
 * the periodic critic -> critic_target hard copy happens BEFORE the update,
-  when ``step % target_interval == 0``;
+  when ``step % target_interval == 0``, and likewise for the auxiliary
+  critic of the world model every ``target_interval_aux`` steps;
 * one forward computes all four losses and ONE ``backward()`` over their sum
   yields the partitioned gradients (each loss touches only its own
   parameters, see ``models/dreamer.py``);
@@ -13,7 +14,9 @@ Counterpart of ``pydreamer_tpu/training/train_step.py:53-162``:
   optax's rule (scale by ``max/norm`` when ``norm > max``, not
   ``clip_grad_norm_``'s ``max/(norm+1e-6)``) and updated by AdamW with
   ``weight_decay=0`` and ``eps=adam_eps``, each with its own learning rate;
-* critic_target is frozen (no gradient, not in the optimizer).
+* the critic targets are frozen (no gradient, not in the optimizer). In JAX
+  the auxiliary critic's target sits in the ``wm`` subtree with zero
+  gradients, which leaves both the update and ``grad_norm`` as they are here.
 
 Master parameters and optimizer state are float32.
 """
@@ -37,7 +40,7 @@ GROUP_METRICS = (("wm", "grad_norm"), ("probe", "grad_norm_probe"),
 def param_groups(model, conf) -> Dict[str, List[torch.nn.Parameter]]:
     """Parameters of each optimizer group (train_step.py:38-72)."""
     groups = {
-        "wm": list(model.wm.parameters()),
+        "wm": [p for p in model.wm.parameters() if p.requires_grad],
         "probe": list(model.probe.parameters()),
         "actor": list(model.ac.actor.parameters()),
         "critic": list(model.ac.critic.parameters()),
@@ -64,6 +67,8 @@ class TrainStep:
         self.model = model
         self.conf = conf
         self.target_interval = conf.get("target_interval", 0)
+        self.target_interval_aux = (conf.get("target_interval_aux", 0)
+                                    if conf.get("aux_critic", False) else 0)
         self.groups = param_groups(model, conf)
         lrs = {"wm": conf.adam_lr, "probe": conf.adam_lr,
                "actor": conf.adam_lr_actor or conf.adam_lr,
@@ -76,17 +81,21 @@ class TrainStep:
             eps=conf.adam_eps, weight_decay=0.0)
 
     def __call__(self, obs: Dict[str, torch.Tensor], in_state, step: int,
-                 noise: Optional[object] = None, seed: int = 0):
+                 noise: Optional[object] = None, seed: int = 0,
+                 do_image_pred: bool = False, do_dream_tensors: bool = False):
         """One step. ``noise`` defaults to a ``GeneratorNoise`` seeded from
-        ``(seed, step)``. Returns (out_state, metrics, tensors); metrics are
-        0-d tensors on the device (no host sync here)."""
+        ``(seed, step)``. Returns (out_state, metrics, tensors, dream_tensors);
+        metrics are 0-d tensors on the device (no host sync here)."""
         if noise is None:
             noise = GeneratorNoise(self.device, seed=seed * 1_000_003 + step)
         model = self.model
         if self.target_interval and step % self.target_interval == 0:
             model.ac.update_critic_target()
+        if self.target_interval_aux and step % self.target_interval_aux == 0:
+            model.wm.ac_aux.update_critic_target()
 
-        losses, out_state, metrics, tensors, _ = model.training_step(obs, in_state, noise)
+        losses, out_state, metrics, tensors, dream_tensors = model.training_step(
+            obs, in_state, noise, do_image_pred=do_image_pred, do_dream_tensors=do_dream_tensors)
         self.optimizer.zero_grad(set_to_none=True)
         sum(losses.values()).backward()
 
@@ -103,4 +112,4 @@ class TrainStep:
             clip_by_global_norm_(grads, norm, self.clips[name])
         self.optimizer.step()
         metrics.update({k: v.detach() for k, v in losses.items()})
-        return out_state, metrics, tensors
+        return out_state, metrics, tensors, dream_tensors

@@ -33,8 +33,11 @@ def test_port_imports_no_jax_and_no_jax_package():
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert "pydreamer_tpu_torch.training.train_step" in out["imported"]
-    assert "pydreamer_tpu_torch.ops.gru_dv2" in out["imported"]
+    files = sorted(ROOT.glob("pydreamer_tpu_torch/**/*.py"))
+    want = {".".join(f.relative_to(ROOT).with_suffix("").parts).replace(".__init__", "")
+            for f in files}
+    assert want <= set(out["imported"]), want - set(out["imported"])
+    assert "pydreamer_tpu_torch.models.noise" in want
     bad = [m for m in out["modules"]
            if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")
            or m == "pydreamer_tpu" or m.startswith("pydreamer_tpu.")]
@@ -56,9 +59,26 @@ def test_entry_points_refuse_cuda_without_a_card(monkeypatch):
     assert TrainStep(model, conf, device="cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("key,value", [("actor_grad", "dynamics"), ("aux_critic", True),
-                                       ("iwae_samples", 2), ("probe_model", "map")])
+@pytest.mark.parametrize("key,value", [("probe_model", "map"), ("probe_model", "goals"),
+                                       ("probe_model", "map+goals")])
 def test_out_of_scope_options_raise(key, value):
     conf = graft._make_conf(tiny=True).replace(**{key: value})
     with pytest.raises(NotImplementedError):
         Dreamer(conf, device="cpu")
+
+
+@pytest.mark.parametrize("overrides", [
+    dict(actor_grad="dynamics", actor_dist="trunc_normal"),
+    dict(actor_grad="dynamics", actor_dist="tanh_normal"),
+    dict(actor_grad="reinforce", actor_dist="normal_tanh"),
+    dict(aux_critic=True), dict(iwae_samples=2), dict(reward_decoder_categorical=(0.0, 1.0)),
+    dict(image_encoder="dense", image_decoder="dense", image_size=7, image_channels=4,
+         image_encoder_layers=2, image_decoder_layers=2),
+    dict(image_encoder=None, image_decoder=None, vecobs_size=3),
+], ids=lambda o: "-".join(f"{k}={v}" for k, v in o.items()))
+def test_ported_options_build(overrides):
+    """The options of this slice build on the CPU; none raises NotImplementedError."""
+    conf = graft._make_conf(tiny=True).replace(**overrides)
+    model = Dreamer(conf, device="cpu")
+    assert next(model.parameters()).device.type == "cpu"
+    assert (model.wm.ac_aux is not None) == bool(conf.aux_critic)
