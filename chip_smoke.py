@@ -46,12 +46,31 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
    kernels and the f32 GEMMs of K1's backward recompute.
 10. ``Dreamer.inference`` on the DMC model at B=1 and B=8: one ``skinny``
    launch a call, finite actions in [-1, 1], host microseconds per call.
+11. The learner loop on the flagship model. K1 at the eval protocol's
+   shapes (``skinny`` M=10, ``wide`` M=480) against its plain version and
+   timed as in 2. Then 8 train and 2 eval episode files of 1000 steps
+   (generator format, compressible frames) written with the port's
+   repository; the npz reader in use and one file's decode time; six
+   prefetched batches held against their numpy sources on the card. Then
+   ``trainer.run`` (``data_workers: 4``, 12 steps, step 1 a log step,
+   checkpoints at 6 and 12, the eval protocol at 6), counts set to 0 just
+   before and read just after: K1's launches by rows must match the train
+   steps, the log step's rollout and the eval calls, none ``generic``;
+   finite ``train/`` losses, ``test/`` and ``eval/`` rows with open-loop
+   metrics, npz dumps, a checkpoint at 12. Then a resume to 18: the weights
+   and optimizer state at its first step equal the checkpoint bit for bit,
+   and it takes steps 13-18 (90 ``wide`` launches at M=1536). Reports the
+   loop's ms/step (steps 9-12, from ``train/fps``) beside phase 4's bare
+   step, ``timer_*``, peak host RSS and peak device memory.
 
 Prints one JSON line of per-kernel numbers (``launches``: the count on the
 path that runs the shape, ``launches_per_step``: per train step or acting
 call), then the nvidia-smi line, then
 as the last line ``{"ok": true, "device": {...}}``. Details go to
-``chiprun_out/chip_smoke.json`` and ``chiprun_out/chip_smoke_profile.txt``.
+``chiprun_out/chip_smoke.json``, ``chiprun_out/chip_smoke_profile.txt`` and
+``chiprun_out/learner_metrics.jsonl`` (phase 11's metrics); phase 11's episode
+files stay in ``chiprun_out/learner_episodes/`` and its run directory (under
+``runs/``, git-ignored) is removed at the end.
 This script imports nothing of JAX or of the JAX package; the flagship
 config below is its own copy.
 """
@@ -327,6 +346,297 @@ def unfused_state_dict(sd):
 def actor_grad_norm(torch, model):
     return torch.sqrt(sum(p.grad.float().square().sum() for p in model.ac.actor.parameters()
                           if p.grad is not None)).item()
+
+
+def _bounce(p, span):
+    """Positions p folded into [0, span] (a block bouncing between walls)."""
+    p = p % (2 * span)
+    return span - abs(p - span)
+
+
+def write_episodes(np, repo, n_files: int, length: int, action_dim: int, seed: int) -> None:
+    """Episode files in the generators' format (``image_t`` HWCT uint8, one-hot
+    float64 actions, float64 rewards, bool terminal/reset), one episode of
+    ``length`` steps each. Frames are a flat background with three moving
+    blocks, so zlib works on them as on game frames, not on noise."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(length)
+    for i in range(n_files):
+        frames = np.empty((length, 64, 64, 3), np.uint8)
+        frames[:] = rng.integers(0, 256, 3, dtype=np.uint8)
+        for _ in range(3):
+            size = int(rng.integers(4, 12))
+            color = rng.integers(0, 256, 3, dtype=np.uint8)
+            ys = _bounce(int(rng.integers(0, 64)) + int(rng.integers(-3, 4)) * t, 64 - size)
+            xs = _bounce(int(rng.integers(0, 64)) + int(rng.integers(-3, 4)) * t, 64 - size)
+            for k in range(length):
+                frames[k, ys[k]:ys[k] + size, xs[k]:xs[k] + size] = color
+        reset = np.zeros(length, bool)
+        reset[0] = True
+        terminal = np.zeros(length, bool)
+        terminal[-1] = True
+        reward = np.where(rng.random(length) < 0.02, rng.choice([-1.0, 1.0], length), 0.0)
+        repo.save_data(dict(image_t=frames.transpose(1, 2, 3, 0),
+                            action=np.eye(action_dim)[rng.integers(0, action_dim, length)],
+                            reward=reward, terminal=terminal, reset=reset), i, i)
+
+
+# The learner keys trainer.run reads (config/defaults.yaml `defaults` + `atari`),
+# set for phase 11's short run from episode files on disk.
+LEARNER = dict(
+    env_id="Atari-Pong", env_action_repeat=4, n_env_steps=10**9, seed=0, platform=None,
+    offline_prefill_dir=None, offline_test_dir=None, data_workers=4,
+    generator_workers=1, generator_workers_train=0, generator_workers_eval=0,
+    generator_prefill_steps=0, buffer_size=10_000_000, buffer_size_offline=0,
+    reset_interval=200, allow_mid_reset=True, enable_profiler=False, max_rss_gb=0.0,
+    n_steps=12, log_interval=4, logbatch_interval=1000, save_interval=6,
+    # The loop stops at n_steps before its eval (as the JAX loop does), so an
+    # eval_interval of 12 would never evaluate in a 12-step run.
+    eval_interval=6,
+    test_batches=2, test_batch_size=10, test_save_size=1,
+    eval_batches=2, eval_batch_size=32, eval_samples=1, eval_save_size=1,
+)
+
+
+def check_prefetch(torch, batches, device, n: int):
+    """Copy ``n`` preprocessed batches through ``prefetch_iterator`` onto the
+    card and hold each device tensor against its numpy source, with a long
+    matmul queued on the consumer's stream before each check. -> (batches
+    checked, the last batch on the card)."""
+    from pydreamer_tpu_torch.data import prefetch_iterator
+    sources = []
+
+    def keep(batch):
+        sources.append({k: v.copy() for k, v in batch.items()})
+        return batch
+
+    x = torch.randn(4096, 4096, device=device)
+    checked = 0
+    it = prefetch_iterator(batches, device, size=2, transform=keep)
+    for i, got in zip(range(n), it):
+        y = x @ x  # keeps the current stream busy while the copies land
+        for k, v in sources[i].items():
+            if not torch.equal(got[k], torch.from_numpy(v).to(device)):
+                raise AssertionError(f"prefetched batch {i} key {k} differs from its numpy source")
+        del y
+        checked += 1
+        last = got
+    it.close()
+    return checked, last
+
+
+def rss_gb() -> float:
+    """This process's resident set size now, from /proc/self/status."""
+    for line in Path("/proc/self/status").read_text().splitlines():
+        if line.startswith("VmRSS:"):
+            return int(line.split()[1]) * 1024 / 1e9
+    raise RuntimeError("no VmRSS in /proc/self/status")
+
+
+class RssPeak:
+    """Samples the process's resident set every 50 ms on a thread while the
+    block runs; ``peak_gb`` is the largest sample."""
+
+    def __enter__(self):
+        import threading
+        self.peak_gb, self._stop = rss_gb(), threading.Event()
+
+        def sample():
+            while not self._stop.wait(0.05):
+                self.peak_gb = max(self.peak_gb, rss_gb())
+
+        self._thread = threading.Thread(target=sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak_gb = max(self.peak_gb, rss_gb())
+        return False
+
+
+def learner_phase(torch, k1, conf, report, path_launches, gen, device, peaks, unfused) -> int:
+    """Phase 11: K1 at the eval protocol's shapes, then ``trainer.run`` on the
+    flagship model from episode files on disk, then a resume. Returns the
+    number of test-protocol train-step calls (for the per-call launch counts)."""
+    import resource
+    import shutil
+
+    import numpy as np
+
+    from pydreamer_tpu_torch import native
+    from pydreamer_tpu_torch.data import (NpzEpisodeRepository, Preprocessor, SequentialDataset,
+                                          make_repository)
+    from pydreamer_tpu_torch.models.dreamer import Dreamer
+    from pydreamer_tpu_torch.tracking import Run, load_checkpoint_file
+    from pydreamer_tpu_torch.training import trainer
+    from pydreamer_tpu_torch.training.train_step import TrainStep
+
+    T, B, H_imag = conf.batch_length, conf.batch_size, conf.imag_horizon
+    In, H = conf.hidden_dim, conf.deter_dim
+    TB = LEARNER["test_batch_size"]
+    out = report["learner"] = {}
+
+    # K1 at the eval protocol's shapes: skinny at M=10 (posterior, open loop),
+    # wide at M=T*10=480 (the dream of a test batch).
+    for M, want in ((TB, "skinny"), (T * TB, "wide")):
+        res = check_k1(torch, k1, M, In, H, torch.bfloat16, want, gen, device, True, peaks, unfused)
+        report["k1"].append(res)
+        print(f"[11] K1 {want} M={M} H={H}: max_abs_err {res['max_abs_err']:.3e}, grads ok, "
+              f"{res['ms']:.5f} ms (L2 warm {res['ms_l2_warm']:.5f}), bound {res['bound_ms']:.5f} ms "
+              f"({res['bound_by']}, {100 * res['bound_share']:.1f}%), plain {res['plain_ms']:.5f}, "
+              f"gemm_library {res['gemm_library_ms']:.5f}, unfused {res['unfused_ms']:.5f} ms; "
+              f"host {res['call_us']:.1f} us/call (unfused {res['unfused_call_us']:.1f})")
+
+    # Episode files: 8 train and 2 eval files of 1000 steps, written by the
+    # port's repository as the generators write them.
+    episodes = OUT_DIR / "learner_episodes"
+    shutil.rmtree(episodes, ignore_errors=True)
+    t0 = time.perf_counter()
+    write_episodes(np, NpzEpisodeRepository(episodes / "train"), 8, 1000, conf.action_dim, seed=11)
+    write_episodes(np, NpzEpisodeRepository(episodes / "eval"), 2, 1000, conf.action_dim, seed=12)
+    write_s = time.perf_counter() - t0
+    files = sorted((episodes / "train").glob("*.npz"))
+    t0 = time.perf_counter()
+    reader = native.reader_name()  # builds the native reader in a fresh checkout
+    reader_build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    decoded = native.load_npz(files[0])
+    decode_ms = (time.perf_counter() - t0) * 1e3
+    mb = sum(f.stat().st_size for f in (episodes / "train").glob("*.npz")) / 1e6
+    out.update(reader=reader, reader_build_s=reader_build_s, decode_ms=decode_ms, write_s=write_s,
+               train_files_mb=mb, decoded_shapes={k: list(v.shape) for k, v in decoded.items()})
+    print(f"[11] npz reader: {reader} (ready in {reader_build_s:.2f} s); one 1000-step file decoded "
+          f"in {decode_ms:.2f} ms; 8 train files {mb:.2f} MB written in {write_s:.2f} s")
+
+    lconf = conf.replace(offline_data_dir=str(episodes / "train"),
+                         offline_eval_dir=str(episodes / "eval"), **LEARNER)
+    # The prefetch's device copies against their numpy sources.
+    batches = Preprocessor.from_conf(lconf)(iter(SequentialDataset(
+        make_repository(str(episodes / "train")), T, B, reset_interval=200, seed=3)))
+    out["prefetch_batches_equal"], obs = check_prefetch(torch, batches, device, 6)
+    print(f"[11] prefetch: {out['prefetch_batches_equal']} batches on the card equal their numpy sources")
+
+    def bare_step_ms():
+        """The bare TrainStep on a batch from these files: 2 warm-up and 5
+        timed steps of a fresh flagship model (a turn beside the loop's)."""
+        torch.manual_seed(0)
+        model = Dreamer(conf, device=device)
+        ts = TrainStep(model, conf, device=device)
+        _, state, _ = timed_steps(torch, ts, obs, model.init_state(B), 0, 2)
+        ms, _, _ = timed_steps(torch, ts, obs, state, 2, 5)
+        del model, ts, state
+        torch.cuda.empty_cache()
+        return ms
+
+    out["bare_step_ms_turns"] = [bare_step_ms()]
+    run_dir = Path(__file__).resolve().parent / "runs" / "chip_smoke_learner"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    out["host_rss_before_gb"] = rss_gb()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k1.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    with RssPeak() as rss:
+        trainer.run(lconf, run_dir=str(run_dir), device=device)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    rows, sched = dict(k1.LAUNCHES.by_rows), dict(k1.LAUNCHES.by_schedule)
+    n_steps = lconf.n_steps
+    # 12 train steps (the first a log step: T-1 more skinny launches for the
+    # dream rollout), the eval at step 6: the test protocol's closed loops at
+    # B=10 (and an open loop where a batch continues its episodes), the eval
+    # protocol's closed loop on batch 0 and open + closed loop on batch 1 at B=32.
+    n_test = rows.get(TB, 0) // T
+    n_eval, EB = 3, LEARNER["eval_batch_size"]
+    want_rows = {}
+    for M, n in ((B, n_steps * T + T - 1), (T * B, n_steps * H_imag), (TB, n_test * T),
+                 (T * TB, n_test * H_imag), (EB, n_eval * T), (T * EB, n_eval * H_imag)):
+        want_rows[M] = want_rows.get(M, 0) + n
+    out.update(run_s=run_s, launches_by_rows=rows, launches_by_schedule=sched,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, peak_host_rss_gb=rss.peak_gb)
+    print(f"[11] trainer.run: {n_steps} steps + eval in {run_s:.1f} s, K1 launches {rows} {sched}, "
+          f"peak device memory {out['peak_mem_gb']:.2f} GB")
+    if n_test not in (2, 3) or rows != want_rows or set(sched) != {"skinny", "wide"}:
+        raise AssertionError(f"learner K1 launches {rows} {sched}, expected {want_rows} "
+                             f"(test protocol calls {n_test}, none generic)")
+
+    metrics = Run(run_dir).read_metrics()
+    train = [m for m in metrics if "train/loss_model" in m]
+    test = [m for m in metrics if "test/loss_model" in m]
+    evals = [m for m in metrics if "eval/loss_model" in m]
+    if [m["_step"] for m in train] != [8, 12] or not test or not evals:
+        raise AssertionError(f"metrics rows: train {[m['_step'] for m in train]}, "
+                             f"test {len(test)}, eval {len(evals)}")
+    for m in train:
+        for k in ("loss_model", "loss_actor", "loss_critic", "grad_norm"):
+            if not math.isfinite(m.get(f"train/{k}", float("nan"))):
+                raise AssertionError(f"train/{k} at step {m['_step']}: {m.get(f'train/{k}')}")
+    if not any(k.endswith("_open") for k in test[0]) or not any(k.endswith("_open") for k in evals[0]):
+        raise AssertionError(f"no open-loop metrics: {sorted(test[0])} {sorted(evals[0])}")
+    for sub in ("d2_wm_closed", "d2_wm_dream"):
+        if not list((run_dir / sub).glob("*.npz")):
+            raise AssertionError(f"no npz dumps in {sub}/")
+    ckpt_path = run_dir / "checkpoints" / "latest.ckpt"
+    saved, saved_step = load_checkpoint_file(ckpt_path, "cpu")
+    if saved_step != n_steps:
+        raise AssertionError(f"checkpoint holds step {saved_step}, expected {n_steps}")
+    steady = train[-1]  # steps 9-12: no checkpoint, eval or log step inside
+    out.update(loop_ms_per_step=1e3 / steady["train/fps"],
+               timers_ms={k[len("train/timer_"):]: v * 1e3 for k, v in steady.items()
+                          if k.startswith("train/timer_")},
+               losses={k: steady[f"train/{k}"] for k in ("loss_model", "loss_actor", "loss_critic")},
+               test_open_keys=sorted(k for k in test[0] if k.endswith("_open")),
+               checkpoint_mb=ckpt_path.stat().st_size / 1e6)
+
+    # Resume to 18: the run must load step 12 with the saved weights and
+    # optimizer state, bit for bit, and take steps 13-18.
+    calls = []
+
+    class FirstCallCheck(trainer.TrainStep):
+        def __call__(self, obs, in_state, step, **kw):
+            if not calls:
+                for k, v in self.model.state_dict().items():
+                    if not torch.equal(v.cpu(), saved["model"][k]):
+                        raise AssertionError(f"resumed parameter {k} differs from the checkpoint")
+                for i, s in self.optimizer.state_dict()["state"].items():
+                    for name, v in s.items():
+                        if not torch.equal(v.cpu(), saved["optimizer"]["state"][i][name]):
+                            raise AssertionError(f"resumed optimizer state {i}/{name} differs")
+            calls.append(step)
+            return super().__call__(obs, in_state, step, **kw)
+
+    plain_train_step, trainer.TrainStep = trainer.TrainStep, FirstCallCheck
+    k1.LAUNCHES.reset()
+    try:
+        trainer.run(lconf.replace(n_steps=18), run_dir=str(run_dir), device=device)
+    finally:
+        trainer.TrainStep = plain_train_step
+    rrows = dict(k1.LAUNCHES.by_rows)
+    resumed = [m for m in Run(run_dir).read_metrics() if "train/loss_model" in m and m["_step"] > 12]
+    out["bare_step_ms_turns"].append(bare_step_ms())
+    out.update(resume_steps=calls, resume_launches_by_rows=rrows,
+               resume_loop_ms_per_step=1e3 / resumed[0]["train/fps"] if resumed else None,
+               script_peak_host_rss_gb=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6,
+               peak_mem_gb_both_runs=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"[11] resume: steps {calls}, K1 launches {rrows}; parameters and optimizer state "
+          f"right after the load equal the step-{saved_step} checkpoint bit for bit")
+    if calls != list(range(13, 19)) or rrows.get(T * B) != 6 * H_imag or rrows.get(B) != 6 * T:
+        raise AssertionError(f"resume took steps {calls} with K1 launches {rrows}, expected 13-18 "
+                             f"and {6 * H_imag} wide at M={T * B}")
+    print(f"[11] learner loop {out['loop_ms_per_step']:.2f} ms/step (steps 9-12, from train/fps; "
+          f"resumed run {out['resume_loop_ms_per_step']:.2f} over 13-16, its start included) vs "
+          f"bare TrainStep {report['step_ms']:.2f} ms/step (phase 4) and "
+          f"{'/'.join(f'{v:.2f}' for v in out['bare_step_ms_turns'])} (before / after the loop); "
+          "timers ms " + ", ".join(f"{k} {v:.2f}" for k, v in out["timers_ms"].items())
+          + f"; host RSS {out['host_rss_before_gb']:.2f} GB before, peak {out['peak_host_rss_gb']:.2f} "
+          f"GB in trainer.run; peak device memory {out['peak_mem_gb']:.2f} GB")
+    shutil.copy(run_dir / "metrics.jsonl", OUT_DIR / "learner_metrics.jsonl")
+    shutil.rmtree(run_dir)
+    path_launches[("skinny", TB, H)] = rows[TB]
+    path_launches[("wide", T * TB, H)] = rows[T * TB]
+    return n_test
 
 
 def main() -> int:
@@ -629,11 +939,20 @@ def main() -> int:
         if not all(tuple(v.shape) == (Bi,) and torch.isfinite(v).all() for v in imetrics.values()):
             raise AssertionError(f"inference B={Bi}: metrics {imetrics}")
         path_launches[("skinny", Bi, Hd)] = n_calls
+    del dmodel, dts, dstate, dobs
+    torch.cuda.empty_cache()
+
+    # 11. The learner loop: trainer.run on the flagship model from episode files.
+    n_test_calls = learner_phase(torch, k1, conf, report, path_launches, gen, device, peaks,
+                                 unfused)
 
     # Launches by shape on each path: flagship (phase 4, 5 steps), DMC (phase
-    # 9, 5 steps) and inference (phase 10, 50 calls); 0 where no path runs it.
+    # 9, 5 steps), inference (phase 10, 50 calls) and the learner's test
+    # protocol (phase 11, per eval call); 0 where no path runs it.
     per_step = {(B, H): n_steps, (T * B, H): n_steps, (B, Hd): n_steps, (T * B, Hd): n_steps,
-                (1, Hd): n_calls, (8, Hd): n_calls}
+                (1, Hd): n_calls, (8, Hd): n_calls,
+                (LEARNER["test_batch_size"], H): n_test_calls,
+                (T * LEARNER["test_batch_size"], H): n_test_calls}
     kernels = []
     for r in report["k1"]:
         key = (r["schedule"], r["M"], r["H"]) if r["dtype"] == "bfloat16" else None

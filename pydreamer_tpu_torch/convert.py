@@ -25,7 +25,7 @@ from typing import Any, Dict, Iterator, Mapping, Tuple
 import numpy as np
 import torch
 
-__all__ = ["jax_to_state_dict", "state_dict_to_jax", "torch_key"]
+__all__ = ["jax_to_state_dict", "state_dict_to_jax", "torch_key", "jax_checkpoint_to_torch"]
 
 _INNER = ("Dense_0", "LayerNorm_0")
 _UNDER_AC = ("actor", "critic", "critic_target")
@@ -99,6 +99,83 @@ def jax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
             raise ValueError(f"two JAX leaves map to {key!r}")
         out[key] = torch.from_numpy(np.array(_to_torch(_kind_of(path, x.ndim), x), copy=True))
     return out
+
+
+def _read_flax_msgpack(path) -> Dict[str, Any]:
+    """A ``flax.serialization.msgpack_serialize`` file -> nested dicts of
+    numpy arrays, without flax: an ndarray (and a numpy scalar) is msgpack
+    ext record 1 (3) holding ``(shape, dtype name, C-order bytes)``; arrays
+    over 2**30 bytes are split into ``{"__msgpack_chunked_array__", "shape",
+    "chunks"}`` dicts."""
+    import msgpack  # lazily: only the converter needs it
+
+    def ext_hook(code, data):
+        if code in (1, 3):
+            shape, dtype, buf = msgpack.unpackb(data, raw=True)
+            if dtype == b"bfloat16":
+                raise ValueError("bfloat16 leaves are not supported; the learner saves float32")
+            arr = np.frombuffer(buf, dtype=np.dtype(dtype.decode())).reshape(shape)
+            return arr if code == 1 else arr[()]
+        return msgpack.ExtType(code, data)
+
+    def unchunk(tree):
+        if not isinstance(tree, dict):
+            return tree
+        if "__msgpack_chunked_array__" in tree:
+            chunks = tree["chunks"]
+            flat = np.concatenate([chunks[str(i)] for i in range(len(chunks))])
+            return flat.reshape(tuple(tree["shape"][str(i)] for i in range(len(tree["shape"]))))
+        return {k: unchunk(v) for k, v in tree.items()}
+
+    with open(path, "rb") as f:
+        return unchunk(msgpack.unpackb(f.read(), ext_hook=ext_hook, raw=False))
+
+
+JAX_OPT_GROUPS = ("wm", "probe", "actor", "critic")
+
+
+def jax_checkpoint_to_torch(path, trainstep) -> Dict[str, Any]:
+    """A JAX learner checkpoint -> the port's checkpoint for ``trainstep``.
+
+    The JAX file (``pydreamer_tpu/tracking.py::save_checkpoint_file``) is flax
+    msgpack of ``{"step", "state": {"params", "opt_state"}}``. ``opt_state`` is
+    ``optax.multi_transform``'s state: ``inner_states/<group>/inner_state`` is
+    the group's ``chain(clip_by_global_norm, adamw)`` state, whose ``1/0`` is
+    ``ScaleByAdamState(count, mu, nu)``; ``mu`` and ``nu`` are shaped like the
+    whole params tree with the other groups' subtrees empty. The moments map
+    through the parameters' own rule (a Linear moment is transposed like its
+    weight, a deconv moment flipped like its kernel) onto AdamW's per-parameter
+    ``exp_avg`` and ``exp_avg_sq``; the group's ``count`` becomes ``step``.
+
+    AdamW's state is positional, so the optimizer state is laid out for
+    ``trainstep.optimizer`` (its groups and parameter order). Returns
+    ``{"step", "model", "optimizer"}``, the layout
+    ``pydreamer_tpu_torch/tracking.py`` saves and loads.
+    """
+    payload = _read_flax_msgpack(path)
+    state = payload["state"]
+    model = trainstep.model
+    model_sd = jax_to_state_dict(state["params"])
+    moments = {}
+    inner = state["opt_state"]["inner_states"]
+    for group in JAX_OPT_GROUPS:
+        adam = inner[group]["inner_state"]["1"]["0"]
+        count = float(np.asarray(adam["count"]))
+        nu = jax_to_state_dict(adam["nu"])
+        for name, mu in jax_to_state_dict(adam["mu"]).items():
+            moments[name] = {"step": torch.tensor(count), "exp_avg": mu, "exp_avg_sq": nu[name]}
+
+    names = {id(p): n for n, p in model.named_parameters()}
+    optimizer = trainstep.optimizer.state_dict()
+    opt_state = {}
+    for group, saved in zip(trainstep.optimizer.param_groups, optimizer["param_groups"]):
+        for p, idx in zip(group["params"], saved["params"]):
+            name = names[id(p)]
+            if name not in moments:
+                raise KeyError(f"the JAX optimizer state has no moments for {name!r}")
+            opt_state[idx] = moments[name]
+    optimizer["state"] = opt_state
+    return {"step": int(payload["step"]), "model": model_sd, "optimizer": optimizer}
 
 
 def state_dict_to_jax(state_dict: Mapping[str, torch.Tensor], like: Mapping) -> Dict[str, Any]:

@@ -1,0 +1,105 @@
+"""Logging and timing for the learner loop.
+
+Counterpart of ``pydreamer_tpu/tools.py``: colored per-process log
+prefixes, ``print_once`` dedup and ``Timer`` phase timings reported as
+``timer_*`` metrics. The JAX package's compilation-cache helper has no
+counterpart here.
+"""
+
+from __future__ import annotations
+
+import logging
+import sys
+import time
+from typing import Dict, Optional
+
+import numpy as np
+
+__all__ = ["logger", "configure_logging", "print_once", "Timer", "timers_summary",
+           "LogColorFormatter"]
+
+logger = logging.getLogger("pydreamer_tpu_torch")
+
+_printed_once = set()
+
+
+def print_once(msg: str, *args):
+    if msg not in _printed_once:
+        _printed_once.add(msg)
+        logger.info("%s %s", msg, " ".join(str(a) for a in args))
+
+
+class LogColorFormatter(logging.Formatter):
+    """ANSI-colored [PREFIX] formatter (reference: tools.py:281-320)."""
+
+    GREY = "\033[90m"
+    GREEN = "\033[32m"
+    YELLOW = "\033[33m"
+    RED = "\033[31m"
+    BOLD_RED = "\033[31;1m"
+    RESET = "\033[0m"
+
+    def __init__(self, prefix: str, color: Optional[str] = None):
+        super().__init__()
+        self.prefix = prefix
+        self.color = color or ""
+
+    def format(self, record: logging.LogRecord) -> str:
+        if record.levelno >= logging.ERROR:
+            color = self.BOLD_RED
+        elif record.levelno >= logging.WARNING:
+            color = self.YELLOW
+        else:
+            color = self.color
+        ts = time.strftime("%H:%M:%S", time.localtime(record.created))
+        msg = record.getMessage()
+        if record.exc_info:
+            msg += "\n" + self.formatException(record.exc_info)
+        return f"{color}{ts} {self.prefix}{self.RESET}  {msg}"
+
+
+def configure_logging(prefix: str = "[MAIN]", color: Optional[str] = None,
+                      level: int = logging.INFO):
+    handler = logging.StreamHandler(sys.stderr)
+    handler.setFormatter(LogColorFormatter(prefix, color))
+    root = logging.getLogger()
+    root.handlers = [handler]
+    root.setLevel(level)
+    for name in ("urllib3", "requests", "PIL"):
+        logging.getLogger(name).setLevel(logging.WARNING)
+
+
+class Timer:
+    """Context timer accumulating seconds per name (reference: tools.py:231-255).
+
+    Samples accumulate in a class-level registry keyed by name, so
+    ``with Timer("step"):`` constructed fresh every loop iteration keeps
+    appending to the same series until ``timers_summary(reset=True)`` drains it.
+    """
+
+    registry: Dict[str, list] = {}
+
+    def __init__(self, name: str = "timer"):
+        self.name = name
+        self.start_time: Optional[float] = None
+
+    def __enter__(self):
+        self.start_time = time.time()
+        return self
+
+    def __exit__(self, *exc):
+        dt = time.time() - self.start_time  # type: ignore
+        Timer.registry.setdefault(self.name, []).append(dt)
+        return False
+
+
+def timers_summary(reset: bool = True) -> Dict[str, float]:
+    """Mean seconds per named timer over the window, as ``timer_*`` metrics."""
+    out = {}
+    for name, times in Timer.registry.items():
+        if times:
+            out[f"timer_{name}"] = float(np.mean(times))
+    if reset:
+        for name in Timer.registry:
+            Timer.registry[name] = []
+    return out

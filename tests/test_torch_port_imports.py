@@ -37,10 +37,23 @@ def test_port_imports_no_jax_and_no_jax_package():
     want = {".".join(f.relative_to(ROOT).with_suffix("").parts).replace(".__init__", "")
             for f in files}
     assert want <= set(out["imported"]), want - set(out["imported"])
-    assert "pydreamer_tpu_torch.models.noise" in want
+    assert {"pydreamer_tpu_torch.models.noise", "pydreamer_tpu_torch.training.trainer",
+            "pydreamer_tpu_torch.data.prefetch", "pydreamer_tpu_torch.native"} <= want
     bad = [m for m in out["modules"]
-           if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")
+           if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "msgpack")
            or m == "pydreamer_tpu" or m.startswith("pydreamer_tpu.")]
+    assert not bad, bad
+
+
+def test_chip_smoke_imports_no_jax():
+    """chip_smoke.py runs where JAX is not installed: no import of JAX, flax,
+    optax or the JAX package anywhere in it, at top level or inside a function."""
+    import ast
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    names = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names}
+    names |= {n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module}
+    assert "pydreamer_tpu_torch.training" in names
+    bad = [m for m in names if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "pydreamer_tpu")]
     assert not bad, bad
 
 
