@@ -62,15 +62,34 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
    and it takes steps 13-18 (90 ``wide`` launches at M=1536). Reports the
    loop's ms/step (steps 9-12, from ``train/fps``) beside phase 4's bare
    step, ``timer_*``, peak host RSS and peak device memory.
+12. The actors at the flagship width (action_dim 4, ``Grid-8x64``, the one
+   image env that needs no SDK). K1 ``skinny`` at M=1 and M=8 (H=1024)
+   against its plain version, timed as in 2. Then ``generator.main`` on the
+   card with the network policy from a checkpoint of a seeded model, at B=1
+   and B=8 (``envs_per_worker``): counts set to 0 just before and read just
+   after each run, one ``skinny`` launch per acting call and none other; at
+   least two episode files each, read back through the repository and
+   ``SequentialDataset`` with the JAX generator's keys, shapes and policy
+   columns; host microseconds per env step. Then ``python -m
+   pydreamer_tpu_torch.launch --configs defaults atari`` (two CPU
+   generators, the learner on the card, 80 steps) under ``timeout`` in a
+   session of its own: exit 0, no process of that session left, episodes
+   from both generators, each generator loading the learner's checkpoint,
+   finite ``train/`` losses, a checkpoint at step 80, and the learner's own
+   log line of K1 launches (48 ``skinny`` + 15 ``wide`` a step plus the log
+   step's 47, none ``generic``); the loop's ms/step beside phase 11's and
+   the CPU generators' ``agent/fps``.
 
 Prints one JSON line of per-kernel numbers (``launches``: the count on the
 path that runs the shape, ``launches_per_step``: per train step or acting
 call), then the nvidia-smi line, then
 as the last line ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``, ``chiprun_out/chip_smoke_profile.txt`` and
-``chiprun_out/learner_metrics.jsonl`` (phase 11's metrics); phase 11's episode
-files stay in ``chiprun_out/learner_episodes/`` and its run directory (under
-``runs/``, git-ignored) is removed at the end.
+``chiprun_out/learner_metrics.jsonl`` (phase 11's metrics),
+``chiprun_out/launch_log.txt`` and ``chiprun_out/launch_metrics.jsonl``
+(phase 12's launcher run); phase 11's episode files stay in
+``chiprun_out/learner_episodes/`` and the run directories (under ``runs/``,
+git-ignored) are removed at the end.
 This script imports nothing of JAX or of the JAX package; the flagship
 config below is its own copy.
 """
@@ -272,6 +291,15 @@ def check_k1(torch, k1, M, In, H, dtype, want, gen, device, timed: bool, peaks, 
     return result
 
 
+def k1_summary(res) -> str:
+    """One timed ``check_k1`` result on a line."""
+    return (f"max_abs_err {res['max_abs_err']:.3e}, grads ok, {res['ms']:.5f} ms (L2 warm "
+            f"{res['ms_l2_warm']:.5f}), bound {res['bound_ms']:.5f} ms ({res['bound_by']}, "
+            f"{100 * res['bound_share']:.1f}%), plain {res['plain_ms']:.5f}, gemm_library "
+            f"{res['gemm_library_ms']:.5f}, unfused {res['unfused_ms']:.5f} ms; host "
+            f"{res['call_us']:.1f} us/call (unfused {res['unfused_call_us']:.1f})")
+
+
 def timed_steps(torch, ts, obs, state, step: int, n: int):
     """Run n TrainStep calls from ``step + 1``; host-clock ms per step, synchronized."""
     torch.cuda.synchronize()
@@ -306,14 +334,18 @@ def on_device(event) -> bool:
     return str(event.device_type).endswith("CUDA")
 
 
-def profile_step(torch, ts, obs, state, step):
-    """One TrainStep under torch.profiler: (state, report, key_averages)."""
+def profile_step(torch, k1, ts, obs, state, step):
+    """One TrainStep under torch.profiler: (state, report, key_averages). The
+    report holds K1's launches in the step by the wrapper's count
+    (``launched``) and by the profiler's kernel records (``k1_launches``)."""
     from torch.profiler import ProfilerActivity, profile
+    k1.LAUNCHES.reset()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         state, _, _, _ = ts(obs, state, step)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    launched = dict(k1.LAUNCHES.by_schedule)
     events = prof.key_averages()
     attr = "self_device_time_total"
     dev_events = [e for e in events if on_device(e)]
@@ -329,12 +361,29 @@ def profile_step(torch, ts, obs, state, step):
     f32_gemms = [e for e in dev_events if "gemm" in e.key.lower() and "k1::" not in e.key
                  and ("f32f32" in e.key or "sgemm" in e.key)]
     report = dict(wall_ms=wall_ms, device_busy_ms=busy_us / 1e3, k1_kernels=k1_rows,
-                  k1_ms=sum(r[2] for r in k1_rows) / 1e3, k1_launches=n_by_kernel,
+                  k1_ms=sum(r[2] for r in k1_rows) / 1e3, launched=launched,
+                  k1_launches=n_by_kernel,
                   k1_ms_by_kernel=ms_by_kernel,
                   f32_gemm_ms=sum(getattr(e, attr) for e in f32_gemms) / 1e3,
                   f32_gemm_calls=sum(e.count for e in f32_gemms),
                   f32_gemm_kernels=sorted({e.key for e in f32_gemms}))
     return state, report, events
+
+
+def check_profiled_k1(prof, T: int, H_imag: int, what: str) -> None:
+    """The profiled step launched T ``skinny`` and H_imag ``wide`` K1 kernels
+    (the wrapper's count), and the profiler recorded kernels of both and none
+    of the other schedules. CUPTI may drop a kernel record in a step of
+    ~10,000 kernels (one of 48 skinny records was seen missing once on an
+    H100), so its counts are held to at most the launches, and reported."""
+    seen = prof["k1_launches"]
+    if prof["launched"] != {"skinny": T, "wide": H_imag}:
+        raise AssertionError(f"{what}: K1 launches {prof['launched']}, expected {T} skinny + "
+                             f"{H_imag} wide")
+    if not (0 < seen["skinny::gates_kernel"] <= T and 0 < seen["wide::gates_kernel"] <= H_imag
+            and seen["generic::"] == 0 and seen["f32::"] == 0):
+        raise AssertionError(f"{what}: the profiler recorded K1 kernels {seen}, launched "
+                             f"{prof['launched']}: {prof['k1_kernels']}")
 
 
 def unfused_state_dict(sd):
@@ -483,11 +532,7 @@ def learner_phase(torch, k1, conf, report, path_launches, gen, device, peaks, un
     for M, want in ((TB, "skinny"), (T * TB, "wide")):
         res = check_k1(torch, k1, M, In, H, torch.bfloat16, want, gen, device, True, peaks, unfused)
         report["k1"].append(res)
-        print(f"[11] K1 {want} M={M} H={H}: max_abs_err {res['max_abs_err']:.3e}, grads ok, "
-              f"{res['ms']:.5f} ms (L2 warm {res['ms_l2_warm']:.5f}), bound {res['bound_ms']:.5f} ms "
-              f"({res['bound_by']}, {100 * res['bound_share']:.1f}%), plain {res['plain_ms']:.5f}, "
-              f"gemm_library {res['gemm_library_ms']:.5f}, unfused {res['unfused_ms']:.5f} ms; "
-              f"host {res['call_us']:.1f} us/call (unfused {res['unfused_call_us']:.1f})")
+        print(f"[11] K1 {want} M={M} H={H}: {k1_summary(res)}")
 
     # Episode files: 8 train and 2 eval files of 1000 steps, written by the
     # port's repository as the generators write them.
@@ -639,6 +684,227 @@ def learner_phase(torch, k1, conf, report, path_launches, gen, device, peaks, un
     return n_test
 
 
+def policy_columns_ok(np, data) -> bool:
+    """Within each episode of a generator file (episodes start at ``reset``),
+    ``policy_value``/``policy_entropy`` are finite but on the last row and
+    ``action_prob`` finite but on the first, as the JAX generator writes them."""
+    starts = list(np.flatnonzero(data["reset"])) + [len(data["reset"])]
+    if starts[0] != 0:
+        return False
+    for a, b in zip(starts[:-1], starts[1:]):
+        for k in ("policy_value", "policy_entropy"):
+            if not (np.isfinite(data[k][a:b - 1]).all() and np.isnan(data[k][b - 1])):
+                return False
+        if not (np.isnan(data["action_prob"][a]) and np.isfinite(data["action_prob"][a + 1:b]).all()):
+            return False
+    return True
+
+
+GEN_KEYS = {"image_t", "action", "reward", "terminal", "reset", "policy_value", "policy_entropy",
+            "action_prob"}
+
+# The launcher run of phase 12c: the flagship learner (`defaults` + `atari`,
+# with the K1 cell) fed by two CPU generators on the one image env that needs
+# no SDK. 80 steps outlive two of the generators' 10 s checkpoint polls.
+LAUNCH_STEPS = 80
+LAUNCH_ARGS = ["--configs", "defaults", "atari", "--env_id", "Grid-8x64", "--action_dim", "4",
+               "--env_time_limit", "50", "--gru_type", "gru_layernorm_dv2",
+               "--generator_workers", "2", "--generator_prefill_steps", "2000",
+               "--generator_log_every", "1", "--eval_interval", "0", "--save_interval", "4",
+               "--log_interval", "10", "--n_steps", str(LAUNCH_STEPS)]
+LAUNCH_TIMEOUT_S = 420
+
+
+def session_processes(sid: int) -> list:
+    """Pids of the live (not zombie) processes in session ``sid``, from /proc."""
+    import os
+    pids = []
+    for d in Path("/proc").iterdir():
+        if not d.name.isdigit():
+            continue
+        try:
+            stat = (d / "stat").read_text()
+            state = stat[stat.rindex(")") + 2]
+            if os.getsid(int(d.name)) == sid and state != "Z":
+                pids.append(int(d.name))
+        except (OSError, ValueError):
+            continue  # the process ended while we looked
+    return pids
+
+
+def generator_phase(torch, k1, conf, report, path_launches, gen, device, peaks, unfused) -> dict:
+    """Phase 12: K1 at the acting shapes of the flagship width, the generator
+    in process on the card at B=1 and B=8, then the launcher end to end.
+    Returns the acting calls per batch size (for the per-call launch counts)."""
+    import os
+    import re
+    import shutil
+
+    import numpy as np
+
+    from pydreamer_tpu_torch import generator
+    from pydreamer_tpu_torch.data import SequentialDataset, make_repository
+    from pydreamer_tpu_torch.models.dreamer import Dreamer
+    from pydreamer_tpu_torch.tracking import Run, load_checkpoint_model, save_checkpoint_file
+
+    In, H = conf.hidden_dim, conf.deter_dim
+    out = report["generator"] = {}
+    root = Path(__file__).resolve().parent
+
+    # 12a. K1 skinny at the acting shapes, M=1 (NetworkPolicy) and M=8
+    # (VectorNetworkPolicy over 8 envs), at the flagship's H=1024.
+    for M in (1, 8):
+        res = check_k1(torch, k1, M, In, H, torch.bfloat16, "skinny", gen, device, True, peaks,
+                       unfused)
+        report["k1"].append(res)
+        print(f"[12] K1 skinny M={M} H={H}: {k1_summary(res)}")
+
+    # 12b. generator.main on the card with the network policy from a
+    # checkpoint of a flagship model with 4 actions, at B=1 and B=8.
+    gconf = conf.replace(action_dim=4)
+    run_dir = root / "runs" / "chip_smoke_generator"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    torch.manual_seed(12)
+    save_checkpoint_file(run_dir / "checkpoints" / "latest.ckpt",
+                         {"model": Dreamer(gconf, device=device).state_dict()}, 0)
+    torch.cuda.empty_cache()
+    calls = {1: 0, 8: 0}
+
+    class CountedPolicy(generator.NetworkPolicy):
+        def __call__(self, obs):
+            calls[1] += 1
+            return super().__call__(obs)
+
+    class CountedVectorPolicy(generator.VectorNetworkPolicy):
+        def __call__(self, obs_list):
+            calls[8] += 1
+            return super().__call__(obs_list)
+
+    plain_policies = generator.NetworkPolicy, generator.VectorNetworkPolicy
+    generator.NetworkPolicy, generator.VectorNetworkPolicy = CountedPolicy, CountedVectorPolicy
+    os.environ["PYDREAMER_RUN_DIR"] = str(run_dir)
+    try:
+        for B, num_steps in ((1, 250), (8, 400)):
+            save_dir = run_dir / f"episodes_b{B}"
+            torch.cuda.synchronize()
+            k1.LAUNCHES.reset()
+            t0 = time.perf_counter()
+            generator.main(env_id="Grid-8x64", save_uri=str(save_dir), policy_main="network",
+                           num_steps=num_steps, env_time_limit=50, steps_per_npz=100,
+                           model_conf=gconf, envs_per_worker=B, log_every=1,
+                           metrics_prefix=f"agent_b{B}", device=device)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            rows, sched = dict(k1.LAUNCHES.by_rows), dict(k1.LAUNCHES.by_schedule)
+            files = sorted(make_repository(str(save_dir)).list_files(), key=lambda f: f.path)
+            datas = [f.load_data() for f in files]
+            fps = [m[f"agent_b{B}/fps"] for m in Run(run_dir).read_metrics()
+                   if f"agent_b{B}/fps" in m]
+            us_per_env_step = 1e6 / (B * float(np.median(fps[1:] or fps)))
+            out[B] = dict(calls=calls[B], launches_by_rows=rows, launches_by_schedule=sched,
+                          files=len(files), steps=sum(len(d["reset"]) for d in datas),
+                          wall_s=wall_s, episodes_logged=len(fps), us_per_env_step=us_per_env_step)
+            print(f"[12] generator B={B}: {calls[B]} acting calls, K1 launches {rows} {sched}, "
+                  f"{len(files)} files of {out[B]['steps']} steps in {wall_s:.1f} s; "
+                  f"{us_per_env_step:.1f} us per env step (acting + env, median of "
+                  f"{len(fps)} episodes' agent fps)")
+            if calls[B] == 0 or rows != {B: calls[B]} or sched != {"skinny": calls[B]}:
+                raise AssertionError(f"generator B={B}: K1 launches {rows} {sched}, expected one "
+                                     f"skinny [M={B}] per acting call ({calls[B]})")
+            if len(files) < 2:
+                raise AssertionError(f"generator B={B} wrote {len(files)} files, expected >= 2")
+            data = {k: np.concatenate([d[k] for d in datas], -1 if k == "image_t" else 0)
+                    for k in datas[0]}
+            n = len(data["reset"])
+            shapes = {k: v.shape for k, v in data.items()}
+            if (set(data) != GEN_KEYS or shapes["image_t"] != (64, 64, 3, n)
+                    or shapes["action"] != (n, 4) or data["image_t"].dtype != np.uint8
+                    or any(shapes[k] != (n,) for k in GEN_KEYS - {"image_t", "action"})
+                    or not policy_columns_ok(np, data)):
+                raise AssertionError(f"generator B={B} files: {shapes}")
+            batch = next(iter(SequentialDataset(make_repository(str(save_dir)), 16, 4, seed=0)))
+            if batch["image"].shape != (16, 4, 64, 64, 3) or batch["policy_value"].shape != (16, 4):
+                raise AssertionError(f"generator B={B}: dataset batch "
+                                     f"{ {k: v.shape for k, v in batch.items()} }")
+    finally:
+        generator.NetworkPolicy, generator.VectorNetworkPolicy = plain_policies
+        os.environ.pop("PYDREAMER_RUN_DIR", None)
+    path_launches[("skinny", 1, H)] = out[1]["calls"]
+    path_launches[("skinny", 8, H)] = out[8]["calls"]
+    shutil.rmtree(run_dir)
+    torch.cuda.empty_cache()
+
+    # 12c. The launcher: two CPU generators feed the flagship learner on the card.
+    run_dir = root / "runs" / "chip_smoke_launch"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    env = {k: v for k, v in os.environ.items() if k != "PYDREAMER_RUN_DIR"}
+    env["PYTHONPATH"] = str(root)
+    cmd = ["timeout", "-k", "10", str(LAUNCH_TIMEOUT_S), sys.executable, "-m",
+           "pydreamer_tpu_torch.launch", *LAUNCH_ARGS, "--run_dir", str(run_dir)]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=root, env=env, start_new_session=True, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    log, _ = proc.communicate()
+    launch_s = time.perf_counter() - t0
+    (OUT_DIR / "launch_log.txt").write_text(log)
+    left = session_processes(proc.pid)
+    for pid in left:
+        os.kill(pid, 9)
+    out["launch"] = dict(rc=proc.returncode, wall_s=launch_s, processes_left=left)
+    print(f"[12] launcher: exit {proc.returncode} after {launch_s:.1f} s, "
+          f"processes left {left} (log: chiprun_out/launch_log.txt)")
+    if proc.returncode != 0 or left:
+        raise AssertionError(f"launcher exit {proc.returncode}, processes left {left}:\n{log[-3000:]}")
+    k1_line = re.search(r"Learner K1 launches: by schedule (\{.*?\}), by rows (\{.*?\})", log)
+    loaded = {w: any(f"[GEN {w}]" in ln and "Generator loaded model checkpoint" in ln
+                     for ln in log.splitlines()) for w in (0, 1)}
+    checks = {"Done prefilling": "Done prefilling" in log,
+              "Learner device: cuda": "Learner device: cuda" in log,
+              "Learner finished; shutting down generators.":
+                  "Learner finished; shutting down generators." in log,
+              "each generator loaded the checkpoint": all(loaded.values()),
+              "episodes in episodes/0 and episodes/1": all(
+                  list((run_dir / "episodes" / str(w)).glob("*.npz")) for w in (0, 1)),
+              "the learner's K1 launch line": k1_line is not None}
+    if not all(checks.values()):
+        raise AssertionError(f"launcher run: {checks}:\n{log[-3000:]}")
+    sched = json.loads(k1_line.group(1))
+    lrows = {int(k): v for k, v in json.loads(k1_line.group(2)).items()}
+    T, B, H_imag = conf.batch_length, conf.batch_size, conf.imag_horizon
+    n = LAUNCH_STEPS  # step 1 is the only log step (logbatch_interval 1000): T-1 more skinny
+    want_sched = {"skinny": n * T + T - 1, "wide": n * H_imag}
+    metrics = Run(run_dir).read_metrics()
+    train = [m for m in metrics if "train/loss_model" in m]
+    acting = [m for m in metrics if "agent/policy_value" in m]
+    _, ckpt_step = load_checkpoint_model(run_dir / "checkpoints" / "latest.ckpt")
+    out["launch"].update(
+        launches_by_schedule=sched, launches_by_rows=lrows, checkpoint_step=ckpt_step,
+        train_steps_logged=[m["_step"] for m in train],
+        loop_ms_per_step=[1e3 / m["train/fps"] for m in train],
+        timers_ms=[{k[len("train/timer_"):]: v * 1e3 for k, v in m.items()
+                    if k.startswith("train/timer_")} for m in train],
+        cpu_generator_fps=[m["agent/fps"] for m in acting],
+        cpu_generator_episodes=len(acting),
+        files={w: len(list((run_dir / "episodes" / str(w)).glob("*.npz"))) for w in (0, 1)})
+    print(f"[12] launcher learner: K1 launches {sched} {lrows}; loop ms/step by window "
+          f"{[round(x, 2) for x in out['launch']['loop_ms_per_step']]} (phase 11 from files: "
+          f"{report['learner']['loop_ms_per_step']:.2f}); timer_step/data/other ms of the last "
+          f"window {[round(train[-1].get(f'train/timer_{k}', float('nan')) * 1e3, 2) for k in ('step', 'data', 'other')]}; "
+          f"CPU generators' agent fps (network policy) {[round(x, 1) for x in out['launch']['cpu_generator_fps']]}")
+    if sched != want_sched or lrows != {B: want_sched["skinny"], T * B: want_sched["wide"]}:
+        raise AssertionError(f"launcher learner K1 launches {sched} {lrows}, expected {want_sched}, "
+                             "none generic")
+    if ckpt_step != n or len(train) < 2:
+        raise AssertionError(f"checkpoint at {ckpt_step}, train rows {[m['_step'] for m in train]}")
+    for m in train:
+        for k in ("loss_model", "loss_actor", "loss_critic"):
+            if not math.isfinite(m.get(f"train/{k}", float("nan"))):
+                raise AssertionError(f"launcher train/{k} at step {m['_step']}: {m.get(f'train/{k}')}")
+    shutil.copy(run_dir / "metrics.jsonl", OUT_DIR / "launch_metrics.jsonl")
+    shutil.rmtree(run_dir)
+    return calls
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -754,15 +1020,13 @@ def main() -> int:
         raise AssertionError("out_state h is not finite of shape (B, deter)")
 
     # 5. Profile one step.
-    state, prof5, events = profile_step(torch, ts, obs, state, step + 1)
+    state, prof5, events = profile_step(torch, k1, ts, obs, state, step + 1)
     report["profile"] = prof5
     table = events.table(sort_by="self_device_time_total", row_limit=30)
     print(f"[5] profiled step: wall {prof5['wall_ms']:.2f} ms, device busy "
-          f"{prof5['device_busy_ms']:.2f} ms; K1 {prof5['k1_ms']:.3f} ms in {prof5['k1_kernels']}")
-    if prof5["k1_launches"] != {"skinny::gates_kernel": T, "wide::gates_kernel": H_imag,
-                                "generic::": 0, "f32::": 0}:
-        raise AssertionError(f"profiler saw K1 launches {prof5['k1_launches']}, expected {T} skinny "
-                             f"+ {H_imag} wide = {T + H_imag} a step: {prof5['k1_kernels']}")
+          f"{prof5['device_busy_ms']:.2f} ms; K1 {prof5['k1_ms']:.3f} ms in {prof5['k1_kernels']}; "
+          f"launched {prof5['launched']}, recorded {prof5['k1_launches']}")
+    check_profiled_k1(prof5, T, H_imag, "[5] profiled step")
     step += 1
 
     # 6. Step time with the K1 cell against the unfused cell, in turns
@@ -789,11 +1053,7 @@ def main() -> int:
     for M in (1, 8):
         res = check_k1(torch, k1, M, In, 2048, bf16, "skinny", gen, device, True, peaks, unfused)
         report["k1"].append(res)
-        print(f"[7] K1 skinny M={M} H=2048: max_abs_err {res['max_abs_err']:.3e}, grads ok, "
-              f"{res['ms']:.5f} ms (L2 warm {res['ms_l2_warm']:.5f}), bound {res['bound_ms']:.5f} ms "
-              f"({res['bound_by']}, {100 * res['bound_share']:.1f}%), plain {res['plain_ms']:.5f}, "
-              f"gemm_library {res['gemm_library_ms']:.5f}, unfused {res['unfused_ms']:.5f} ms; "
-              f"host {res['call_us']:.1f} us/call (unfused {res['unfused_call_us']:.1f})")
+        print(f"[7] K1 skinny M={M} H=2048: {k1_summary(res)}")
 
     # 8. The DMC path: one forward and backward with the K1 cell and with the
     #    unfused cell, same weights, same noise.
@@ -894,16 +1154,15 @@ def main() -> int:
         raise AssertionError("log step: non-finite dream tensors or metrics")
 
     # Profile one step.
-    dstate, prof9, events9 = profile_step(torch, dts, dobs, dstate, dstep + 1)
+    dstate, prof9, events9 = profile_step(torch, k1, dts, dobs, dstate, dstep + 1)
     dstep += 1
     report["dmc"]["profile"] = prof9
     print(f"[9] profiled DMC step: wall {prof9['wall_ms']:.2f} ms, device busy "
           f"{prof9['device_busy_ms']:.2f} ms; K1 {prof9['k1_ms']:.3f} ms {prof9['k1_ms_by_kernel']}; "
           f"f32 GEMMs (K1's backward recompute) {prof9['f32_gemm_ms']:.3f} ms in "
-          f"{prof9['f32_gemm_calls']} calls")
-    if prof9["k1_launches"] != {"skinny::gates_kernel": T, "wide::gates_kernel": H_imag,
-                                "generic::": 0, "f32::": 0}:
-        raise AssertionError(f"profiler saw K1 launches {prof9['k1_launches']} in the DMC step")
+          f"{prof9['f32_gemm_calls']} calls; K1 launched {prof9['launched']}, recorded "
+          f"{prof9['k1_launches']}")
+    check_profiled_k1(prof9, T, H_imag, "[9] profiled DMC step")
     (OUT_DIR / "chip_smoke_profile.txt").write_text(
         f"{smi}\n[5] flagship step\n{table}\n[9] DMC step\n"
         f"{events9.table(sort_by='self_device_time_total', row_limit=40)}\n")
@@ -946,13 +1205,20 @@ def main() -> int:
     n_test_calls = learner_phase(torch, k1, conf, report, path_launches, gen, device, peaks,
                                  unfused)
 
+    # 12. The actors: K1 at the flagship's acting shapes, the generator on the
+    #     card, the launcher feeding the learner from live generators.
+    acting_calls = generator_phase(torch, k1, conf, report, path_launches, gen, device, peaks,
+                                   unfused)
+
     # Launches by shape on each path: flagship (phase 4, 5 steps), DMC (phase
-    # 9, 5 steps), inference (phase 10, 50 calls) and the learner's test
-    # protocol (phase 11, per eval call); 0 where no path runs it.
+    # 9, 5 steps), inference (phase 10, 50 calls), the learner's test
+    # protocol (phase 11, per eval call) and the generator's acting calls
+    # (phase 12); 0 where no path runs it.
     per_step = {(B, H): n_steps, (T * B, H): n_steps, (B, Hd): n_steps, (T * B, Hd): n_steps,
                 (1, Hd): n_calls, (8, Hd): n_calls,
                 (LEARNER["test_batch_size"], H): n_test_calls,
-                (T * LEARNER["test_batch_size"], H): n_test_calls}
+                (T * LEARNER["test_batch_size"], H): n_test_calls,
+                (1, H): acting_calls[1], (8, H): acting_calls[8]}
     kernels = []
     for r in report["k1"]:
         key = (r["schedule"], r["M"], r["H"]) if r["dtype"] == "bfloat16" else None

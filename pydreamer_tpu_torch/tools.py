@@ -1,9 +1,13 @@
-"""Logging and timing for the learner loop.
+"""Logging, timing and small host-side utilities.
 
 Counterpart of ``pydreamer_tpu/tools.py``: colored per-process log
-prefixes, ``print_once`` dedup and ``Timer`` phase timings reported as
-``timer_*`` metrics. The JAX package's compilation-cache helper has no
-counterpart here.
+prefixes, ``print_once`` dedup, ``Timer`` phase timings reported as
+``timer_*`` metrics and ``discount`` (the generators' discounted return).
+The JAX package's persistent compilation cache
+(``enable_persistent_compilation_cache``, which the JAX generator enables at
+start) is a cache of XLA executables and has no counterpart here: eager
+PyTorch compiles nothing, and K1's library is built once into
+``ops/_build/`` and reused by every process.
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ from typing import Dict, Optional
 import numpy as np
 
 __all__ = ["logger", "configure_logging", "print_once", "Timer", "timers_summary",
-           "LogColorFormatter"]
+           "discount", "LogColorFormatter"]
 
 logger = logging.getLogger("pydreamer_tpu_torch")
 
@@ -103,3 +107,9 @@ def timers_summary(reset: bool = True) -> Dict[str, float]:
         for name in Timer.registry:
             Timer.registry[name] = []
     return out
+
+
+def discount(x: np.ndarray, gamma: float) -> np.ndarray:
+    """Discounted cumulative sums along axis 0 (reference: tools.py:226-228)."""
+    import scipy.signal
+    return scipy.signal.lfilter([1.0], [1.0, -gamma], x[::-1], axis=0)[::-1]

@@ -25,7 +25,15 @@ file or the new one, never a partial one. The file is a ``torch.save`` of::
 ``load_checkpoint_file(path, device)`` reads it with ``weights_only=True``
 onto ``device``, except the optimizer's ``step`` counts, which stay on the
 CPU where ``torch.optim.AdamW`` keeps them; a missing or unreadable file
-gives ``None``. A generator that only acts needs ``"model"``.
+gives ``None``. A generator that only acts needs ``"model"``:
+``load_checkpoint_model(path)`` maps the file into memory on the CPU and
+reads that entry alone, so the AdamW moments (two thirds of the file) are
+never read.
+
+``metrics.jsonl`` is shared: generator processes and the learner join one
+run and append to it. ``Run.log_metrics`` writes each record as one line in
+one unbuffered ``write`` to a file opened for appending, so lines from
+several processes never interleave.
 """
 
 from __future__ import annotations
@@ -45,7 +53,8 @@ import torch
 from .device import resolve_device
 from .tools import logger
 
-__all__ = ["Run", "init_run", "save_checkpoint_file", "load_checkpoint_file"]
+__all__ = ["Run", "init_run", "save_checkpoint_file", "load_checkpoint_file",
+           "load_checkpoint_model"]
 
 
 @contextlib.contextmanager
@@ -95,6 +104,22 @@ def load_checkpoint_file(path: Union[str, Path], device: str | torch.device = "c
     return payload, step
 
 
+def load_checkpoint_model(path: Union[str, Path]
+                          ) -> Optional[Tuple[Dict[str, torch.Tensor], int]]:
+    """-> (the ``"model"`` state dict on the CPU, step) or None if the file is
+    missing or unreadable. The file is memory-mapped, so only the model's
+    tensors are read from disk; the caller copies them where it needs them."""
+    path = Path(path)
+    if not path.exists():
+        return None
+    try:
+        payload = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+        return payload["model"], int(payload["step"])
+    except Exception:  # truncated or foreign file: the caller polls again
+        logger.exception("Failed to read checkpoint %s", path)
+        return None
+
+
 class Run:
     """One training run rooted at a directory."""
 
@@ -123,13 +148,26 @@ class Run:
     def checkpoint_path(self) -> Path:
         return self.dir / "checkpoints" / "latest.ckpt"
 
-    # -- metrics ----------------------------------------------------------
+    # -- params / metrics -------------------------------------------------
+
+    def log_params(self, params: Dict[str, Any]):
+        _atomic_write(self.dir / "params.json",
+                      json.dumps(params, default=str, indent=2).encode())
+        if self._mlflow:
+            try:
+                import mlflow
+                items = list(params.items())
+                for i in range(0, len(items), 100):
+                    mlflow.log_params(dict(items[i:i + 100]))
+            except Exception:  # the mirror is optional; the run goes on
+                logger.exception("mlflow param logging failed")
 
     def log_metrics(self, metrics: Dict[str, float], step: int):
         rec = {"_step": int(step), "_timestamp": time.time()}
         rec.update({k: float(v) for k, v in metrics.items() if _is_finite(v)})
-        with open(self._metrics_path, "a") as f:
-            f.write(json.dumps(rec) + "\n")
+        # One write of the whole line: other processes append to this file too.
+        with open(self._metrics_path, "ab", buffering=0) as f:
+            f.write((json.dumps(rec) + "\n").encode())
         if self._mlflow:
             try:
                 import mlflow

@@ -70,6 +70,7 @@ def run(conf: Conf, run_dir: Optional[str] = None, max_steps: Optional[int] = No
     if conf.get("platform") == "cpu":
         device = "cpu"  # the debug preset runs the learner on the CPU
     device = resolve_device(device)
+    logger.info("Learner device: %s", device)
     run_ = init_run(run_dir=run_dir)
     artifact_dir = run_.dir
     timers_summary(reset=True)
