@@ -79,6 +79,22 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
    log line of K1 launches (48 ``skinny`` + 15 ``wide`` a step plus the log
    step's 47, none ``generic``); the loop's ms/step beside phase 11's and
    the CPU generators' ``agent/fps``.
+13. The probes and the baseline world models at the MiniWorld width
+   (``--configs defaults miniworld --goals_size 4 --probe_model map+goals``
+   through the port's ``parse_args``: deter 2048, 64x64x3 images with the
+   reward planes, cnn_depth 32, a 9x9x14 map, 3 actions; T=48, B=32, bf16)
+   on synthetic batches with the probes' targets. 13a: Dreamer with
+   ``gru_layernorm_dv2``, three TrainStep calls, then a counted one (48
+   ``skinny`` + 15 ``wide``, none ``generic``), an eval-style call with
+   ``do_image_pred`` (48 + 15 more); a profiled step (busy time); finite
+   probe metrics, the probe's weights moved, and the probe's loss alone
+   gives the world model no gradient. 13b: ``vae``, ``gru_vae``,
+   ``transformer_vae`` and ``gru_probe`` (under ``probe_gradients``), three
+   TrainStep calls each with the TBTT state carried and a profiled fourth,
+   finite losses and both gradient norms, no K1 launch, the median ms per
+   step and the busy time; for the two GRU models a step from the
+   carried state differs from one from zeros on the streams that go on, and
+   only there. 13c: ``gru_vae`` at ``iwae_samples: 3`` for one step.
 
 Prints one JSON line of per-kernel numbers (``launches``: the count on the
 path that runs the shape, ``launches_per_step``: per train step or acting
@@ -87,7 +103,8 @@ as the last line ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``, ``chiprun_out/chip_smoke_profile.txt`` and
 ``chiprun_out/learner_metrics.jsonl`` (phase 11's metrics),
 ``chiprun_out/launch_log.txt`` and ``chiprun_out/launch_metrics.jsonl``
-(phase 12's launcher run); phase 11's episode files stay in
+(phase 12's launcher run), ``chiprun_out/probe_phase.json`` (phase 13);
+phase 11's episode files stay in
 ``chiprun_out/learner_episodes/`` and the run directories (under ``runs/``,
 git-ignored) are removed at the end.
 This script imports nothing of JAX or of the JAX package; the flagship
@@ -905,6 +922,196 @@ def generator_phase(torch, k1, conf, report, path_launches, gen, device, peaks, 
     return calls
 
 
+# Phase 13: the MiniWorld preset (config/defaults.yaml `defaults` + `miniworld`,
+# goals_size as its note asks) with both probes, read by the port's parse_args.
+MINIWORLD_ARGS = ["--configs", "defaults", "miniworld", "--goals_size", "4",
+                  "--probe_model", "map+goals", "--gru_type", "gru_layernorm_dv2"]
+BASELINES = ("vae", "gru_vae", "transformer_vae", "gru_probe")
+PROBE_METRICS = ("loss_map", "acc_map", "acc_map_seen", "mse_goals", "grad_norm_probe")
+
+
+def make_probe_obs(torch, conf, gen, device):
+    """A MiniWorld-shaped batch with the keys the Preprocessor makes for the
+    probes (config/defaults.yaml:206-221) and ``action_next``; half the
+    streams go on from the previous batch (no reset at t=0)."""
+    obs = make_obs(torch, conf, gen, device)
+    T, B = obs["reward"].shape
+    S, G = conf.map_size, conf.goals_size
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=gen, device=device)
+
+    obs["reset"][0, ::2] = False
+    obs["action_next"] = torch.cat([obs["action"][1:], torch.zeros_like(obs["action"][:1])])
+    obs.update(map=torch.randint(0, conf.map_channels, (T, B, S, S), generator=gen, device=device,
+                                 dtype=torch.int32),
+               map_coord=rand(T, B, 4) * 2 - 1,
+               map_seen_mask=(rand(T, B, S, S) < 0.5).float(),
+               goal_direction=torch.randn(T, B, 2, generator=gen, device=device),
+               goals_direction=torch.randn(T, B, 2 * G, generator=gen, device=device),
+               goals_visage=torch.randint(0, 1000, (T, B, G), generator=gen,
+                                          device=device).float())
+    return obs
+
+
+def step_times(torch, ts, obs, state, n: int, first_step: int = 1):
+    """n TrainStep calls, each timed alone (host clock, synchronized), the
+    TBTT state carried. -> (ms of each, state, last metrics)."""
+    times = []
+    for i in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics, _, _ = ts(obs, state, first_step + i)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times, state, metrics
+
+
+def finite_metrics(metrics, names, what):
+    vals = {k: metrics[k].item() for k in names}
+    if not all(math.isfinite(v) for v in vals.values()):
+        raise AssertionError(f"{what}: metrics {vals}")
+    return vals
+
+
+def probe_phase(torch, k1, report, gen, device):
+    """Phase 13: Dreamer with both probes and the four baselines at the
+    MiniWorld width. Returns K1's launches by (schedule, M, H) and the
+    number of calls that made them."""
+    from pydreamer_tpu_torch.conf import parse_args
+    from pydreamer_tpu_torch.models.baselines import WorldModelProbe
+    from pydreamer_tpu_torch.models.dreamer import Dreamer
+    from pydreamer_tpu_torch.models.noise import GeneratorNoise
+    from pydreamer_tpu_torch.training.train_step import TrainStep
+
+    config_dir = str(Path(__file__).resolve().parent / "config")
+    conf = parse_args(MINIWORLD_ARGS, config_dir=config_dir)
+    T, B, H_imag, H = conf.batch_length, conf.batch_size, conf.imag_horizon, conf.deter_dim
+    out = report["probes"] = {}
+    obs = make_probe_obs(torch, conf, gen, device)
+
+    # 13a. Dreamer with the map and goals probes, K1 in both loops.
+    torch.manual_seed(13)
+    model = Dreamer(conf, device=device)
+    ts = TrainStep(model, conf, device=device)
+    probe_before = [p.detach().clone() for p in model.probe.parameters()]
+    torch.cuda.reset_peak_memory_stats()
+    times, state, _ = step_times(torch, ts, obs, model.init_state(B), 3)
+    k1.LAUNCHES.reset()
+    counted, state, metrics = step_times(torch, ts, obs, state, 1, first_step=4)
+    rows, sched = dict(k1.LAUNCHES.by_rows), dict(k1.LAUNCHES.by_schedule)
+    state, prof, _ = profile_step(torch, k1, ts, obs, state, 5)
+    check_profiled_k1(prof, T, H_imag, "[13a] profiled step")
+    vals = finite_metrics(metrics, PROBE_METRICS + ("loss_model", "loss_probe", "grad_norm"),
+                          "[13a] Dreamer map+goals")
+    moved = sum(not torch.equal(p, q) for p, q in zip(model.probe.parameters(), probe_before))
+    k1.LAUNCHES.reset()
+    with torch.no_grad():
+        _, _, emetrics, etensors, _ = model.training_step(
+            obs, state, GeneratorNoise(device, seed=13), iwae_samples=1, do_image_pred=True)
+    eval_sched = dict(k1.LAUNCHES.by_schedule)
+    logprob = finite_metrics(emetrics, [k for k in emetrics if k.startswith("logprob_")],
+                             "[13a] eval call")
+    model.zero_grad(set_to_none=True)
+    losses, *_ = model.training_step(obs, state, GeneratorNoise(device, seed=14))
+    losses["loss_probe"].backward()
+    leaked = [n for n, p in model.wm.named_parameters() if p.grad is not None and p.grad.any()]
+    probe_grad = any(p.grad is not None and p.grad.any() for p in model.probe.parameters())
+    out["dreamer"] = dict(ms=times + counted, launches_by_rows=rows, launches_by_schedule=sched,
+                          profiled_wall_ms=prof["wall_ms"], device_busy_ms=prof["device_busy_ms"],
+                          k1_ms=prof["k1_ms"], metrics=vals, probe_tensors_moved=moved, eval_launches=eval_sched,
+                          eval_logprob=logprob, wm_params_with_probe_grad=leaked,
+                          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"[13a] Dreamer map+goals: ms per step {[round(t, 2) for t in times + counted]}, "
+          f"counted step K1 launches {rows} {sched}, eval call {eval_sched}; profiled step: "
+          f"wall {prof['wall_ms']:.2f} ms, device busy {prof['device_busy_ms']:.2f} ms, K1 "
+          f"{prof['k1_ms']:.3f} ms; "
+          + ", ".join(f"{k} {v:.5g}" for k, v in vals.items())
+          + f"; {moved}/{len(probe_before)} probe tensors moved; wm tensors with a gradient "
+          f"from loss_probe alone: {leaked}; peak mem {out['dreamer']['peak_mem_gb']:.2f} GB")
+    want = {"skinny": T, "wide": H_imag}
+    if sched != want or rows != {B: T, T * B: H_imag} or eval_sched != want:
+        raise AssertionError(f"[13a] K1 launches {rows} {sched} / eval {eval_sched}, expected "
+                             f"{T} skinny [M={B}] + {H_imag} wide [M={T * B}], none generic")
+    if moved != len(probe_before) or leaked or not probe_grad:
+        raise AssertionError(f"[13a] probe tensors moved {moved}/{len(probe_before)}, wm "
+                             f"gradients from loss_probe {leaked}, probe gradient {probe_grad}")
+    for k in ("map_rec", "goals_direction_pred", "image_pred"):
+        if k not in etensors or not torch.isfinite(etensors[k]).all():
+            raise AssertionError(f"[13a] eval call tensor {k}: {sorted(etensors)}")
+    del model, ts, state, losses
+    torch.cuda.empty_cache()
+    launches = {(kind, M, H): sched[kind] + eval_sched[kind]
+                for kind, M in (("skinny", B), ("wide", T * B))}
+
+    # 13b. The four baselines: no K1, the TBTT state carried.
+    for name in BASELINES:
+        extra = ["--probe_gradients", "True"] if name == "gru_probe" else []
+        bconf = parse_args(MINIWORLD_ARGS + ["--model", name] + extra, config_dir=config_dir)
+        torch.manual_seed(13)
+        bmodel = WorldModelProbe(bconf, device=device)
+        bts = TrainStep(bmodel, bconf, device=device)
+        torch.cuda.reset_peak_memory_stats()
+        k1.LAUNCHES.reset()
+        state0 = bmodel.init_state(B)
+        times, state, metrics = step_times(torch, bts, obs, state0, 3)
+        n_k1 = k1.LAUNCHES.count
+        state, prof, _ = profile_step(torch, k1, bts, obs, state, 4)
+        vals = finite_metrics(metrics, ("loss_model", "loss_probe", "grad_norm", "grad_norm_probe")
+                              + PROBE_METRICS[:4], f"[13b] {name}")
+        res = out[name] = dict(ms=times, median_ms=sorted(times)[1], k1_launches=n_k1,
+                               profiled_wall_ms=prof["wall_ms"],
+                               device_busy_ms=prof["device_busy_ms"], metrics=vals,
+                               state_shape=list(state.shape), params=sum(
+                                   p.numel() for p in bmodel.parameters()),
+                               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        if name in ("gru_vae", "gru_probe"):
+            # A step from the carried state against one from zeros, same noise.
+            with torch.no_grad():
+                _, s_carry, *_ = bmodel.training_step(obs, state, GeneratorNoise(device, seed=15))
+                _, s_zero, *_ = bmodel.training_step(obs, torch.zeros_like(state),
+                                                     GeneratorNoise(device, seed=15))
+            goes_on = ~obs["reset"][0]
+            res["carry_diff"] = (s_carry[goes_on] - s_zero[goes_on]).abs().max().item()
+            res["reset_diff"] = (s_carry[~goes_on] - s_zero[~goes_on]).abs().max().item()
+            if (tuple(state.shape) != (B, H) or not torch.isfinite(state).all()
+                    or not res["carry_diff"] > 0 or res["reset_diff"] > 1e-5):
+                raise AssertionError(f"[13b] {name} TBTT state {tuple(state.shape)}: carried vs "
+                                     f"zeros differ by {res['carry_diff']} where streams go on, "
+                                     f"{res['reset_diff']} where they reset")
+        print(f"[13b] {name}: median {res['median_ms']:.2f} ms/step of {[round(t, 2) for t in times]}"
+              f" (MiniWorld width, T={T}, B={B}, {bconf.precision}), profiled step: wall "
+              f"{prof['wall_ms']:.2f} ms, device busy {prof['device_busy_ms']:.2f} ms; K1 "
+              f"launches {n_k1 + sum(prof['launched'].values())}, "
+              + ", ".join(f"{k} {v:.5g}" for k, v in vals.items())
+              + (f", state carried (diff {res['carry_diff']:.3g} vs 0 on reset streams "
+                 f"{res['reset_diff']:.3g})" if "carry_diff" in res else "")
+              + f", peak mem {res['peak_mem_gb']:.2f} GB")
+        if n_k1 or prof["launched"]:
+            raise AssertionError(f"[13b] {name} launched K1 {n_k1} times, {prof['launched']} "
+                                 "in its profiled step")
+        del bmodel, bts, state
+        torch.cuda.empty_cache()
+
+    # 13c. gru_vae with 3 IWAE samples: each stream's samples side by side.
+    iconf = parse_args(MINIWORLD_ARGS + ["--model", "gru_vae", "--iwae_samples", "3"],
+                       config_dir=config_dir)
+    imodel = WorldModelProbe(iconf, device=device)
+    times, state, metrics = step_times(torch, TrainStep(imodel, iconf, device=device), obs,
+                                       imodel.init_state(3 * B), 1)
+    vals = finite_metrics(metrics, ("loss_model", "loss_dyn", "loss_probe", "grad_norm"),
+                          "[13c] gru_vae I=3")
+    out["gru_vae_iwae3"] = dict(ms=times, metrics=vals, state_shape=list(state.shape))
+    print(f"[13c] gru_vae iwae_samples 3: {times[0]:.2f} ms, state {tuple(state.shape)}, "
+          + ", ".join(f"{k} {v:.5g}" for k, v in vals.items()))
+    if tuple(state.shape) != (3 * B, H):
+        raise AssertionError(f"[13c] state {tuple(state.shape)}, expected {(3 * B, H)}")
+    del imodel, state
+    torch.cuda.empty_cache()
+    (OUT_DIR / "probe_phase.json").write_text(json.dumps(out, indent=1))
+    return launches, 2
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1210,11 +1417,18 @@ def main() -> int:
     acting_calls = generator_phase(torch, k1, conf, report, path_launches, gen, device, peaks,
                                    unfused)
 
+    # 13. The probes and the baselines at the MiniWorld width.
+    probe_launches, probe_calls = probe_phase(torch, k1, report, gen, device)
+    for key, n in probe_launches.items():
+        path_launches[key] += n
+
     # Launches by shape on each path: flagship (phase 4, 5 steps), DMC (phase
-    # 9, 5 steps), inference (phase 10, 50 calls), the learner's test
-    # protocol (phase 11, per eval call) and the generator's acting calls
-    # (phase 12); 0 where no path runs it.
-    per_step = {(B, H): n_steps, (T * B, H): n_steps, (B, Hd): n_steps, (T * B, Hd): n_steps,
+    # 9, 5 steps) with the MiniWorld probes (phase 13, a step and an eval
+    # call), inference (phase 10, 50 calls), the learner's test protocol
+    # (phase 11, per eval call) and the generator's acting calls (phase 12);
+    # 0 where no path runs it.
+    per_step = {(B, H): n_steps, (T * B, H): n_steps, (B, Hd): n_steps + probe_calls,
+                (T * B, Hd): n_steps + probe_calls,
                 (1, Hd): n_calls, (8, Hd): n_calls,
                 (LEARNER["test_batch_size"], H): n_test_calls,
                 (T * LEARNER["test_batch_size"], H): n_test_calls,

@@ -12,8 +12,12 @@ state_dict key is its JAX path with these rules:
   (``deconv_*``) ``kernel`` HWIO -> PyTorch's (in,out,kh,kw) with a spatial
   flip, because ``lax.conv_transpose`` (``transpose_kernel=False``) correlates
   the dilated input with the kernel as it is while ``conv_transpose2d``
-  correlates with the flipped kernel. The GRU cells keep JAX's names and
-  (in,3H) layout with r,u,n gate columns: ``weight_ih``, ``weight_hh``,
+  correlates with the flipped kernel; attention (flax
+  ``MultiHeadDotProductAttention``, children ``query``/``key``/``value``/
+  ``out`` of an ``attn_*`` module): the 3-D kernels ``(D, heads, head_dim)``
+  and, for ``out``, ``(heads, head_dim, D)`` -> Linear ``weight`` over all
+  heads, the ``(heads, head_dim)`` biases -> flat. The GRU cells keep JAX's
+  names and (in,3H) layout with r,u,n gate columns: ``weight_ih``, ``weight_hh``,
   ``bias_ih``/``bias_hh``, ``ln_scale``/``ln_bias`` (kernel cell) and
   ``lnorm/{scale,bias}`` (``_xla`` cell).
 """
@@ -40,24 +44,28 @@ def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple
 
 
 def _kind(path: Tuple[str, ...], ndim: int) -> str:
-    """How a leaf converts: 'linear', 'conv', 'deconv', 'scale' or 'same'."""
+    """How a leaf's array converts: 'linear', 'conv', 'deconv', 'attn_in',
+    'attn_out', 'attn_bias' or 'same'."""
     leaf = path[-1]
+    if len(path) >= 3 and path[-3].startswith("attn_") and ndim > 1:
+        if leaf == "bias":
+            return "attn_bias"
+        return "attn_out" if path[-2] == "out" else "attn_in"
     if leaf == "kernel":
         if ndim == 2:
             return "linear"
         return "deconv" if path[-2].startswith("deconv_") else "conv"
-    return "scale" if leaf == "scale" else "same"
+    return "same"
 
 
-def torch_key(path: Tuple[str, ...], ndim: int) -> str:
+def torch_key(path: Tuple[str, ...]) -> str:
     """state_dict key of the JAX leaf at ``path``."""
     segs = [s for s in path if s != "params"]
     if segs[0] in _UNDER_AC:
         segs = ["ac"] + segs
     if len(segs) >= 3 and segs[-2] in _INNER:
         del segs[-2]
-    kind = _kind(tuple(segs), ndim)
-    if kind != "same":
+    if segs[-1] in ("kernel", "scale"):
         segs[-1] = "weight"
     return ".".join(segs)
 
@@ -65,6 +73,12 @@ def torch_key(path: Tuple[str, ...], ndim: int) -> str:
 def _to_torch(kind: str, x: np.ndarray) -> np.ndarray:
     if kind == "linear":
         return x.T
+    if kind == "attn_in":   # (D, heads, head_dim) -> (heads*head_dim, D)
+        return x.reshape(x.shape[0], -1).T
+    if kind == "attn_out":  # (heads, head_dim, D) -> (D, heads*head_dim)
+        return x.reshape(-1, x.shape[-1]).T
+    if kind == "attn_bias":
+        return x.reshape(-1)
     if kind == "conv":
         return x.transpose(3, 2, 0, 1)
     if kind == "deconv":
@@ -72,9 +86,13 @@ def _to_torch(kind: str, x: np.ndarray) -> np.ndarray:
     return x
 
 
-def _to_jax(kind: str, x: np.ndarray) -> np.ndarray:
+def _to_jax(kind: str, x: np.ndarray, shape: Tuple[int, ...]) -> np.ndarray:
     if kind == "linear":
         return x.T
+    if kind in ("attn_in", "attn_out"):
+        return x.T.reshape(shape)
+    if kind == "attn_bias":
+        return x.reshape(shape)
     if kind == "conv":
         return x.transpose(2, 3, 1, 0)
     if kind == "deconv":
@@ -94,7 +112,7 @@ def jax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     out = {}
     for path, leaf in _leaves(params):
         x = np.asarray(leaf)
-        key = torch_key(path, x.ndim)
+        key = torch_key(path)
         if key in out:
             raise ValueError(f"two JAX leaves map to {key!r}")
         out[key] = torch.from_numpy(np.array(_to_torch(_kind_of(path, x.ndim), x), copy=True))
@@ -188,9 +206,9 @@ def state_dict_to_jax(state_dict: Mapping[str, torch.Tensor], like: Mapping) -> 
             if isinstance(v, Mapping):
                 out[k] = fill(v, path)
                 continue
-            ndim = np.ndim(v)
-            x = state_dict[torch_key(path, ndim)].detach().cpu().numpy()
-            out[k] = np.ascontiguousarray(_to_jax(_kind_of(path, ndim), x))
+            shape = tuple(np.shape(v))
+            x = state_dict[torch_key(path)].detach().cpu().numpy()
+            out[k] = np.ascontiguousarray(_to_jax(_kind_of(path, len(shape)), x, shape))
         return out
 
     return fill(like, ())

@@ -47,12 +47,15 @@ class Dense(nn.Linear):
 
 
 class Norm(nn.Module):
-    """LayerNorm(eps=1e-3) or identity — the reference's `norm`/`NoNorm` switch."""
+    """LayerNorm(eps=1e-3) or identity — the reference's `norm`/`NoNorm` switch.
+    ``eps`` 1e-5 gives flax ``nn.LayerNorm``'s default."""
 
-    def __init__(self, dim: int, enabled: bool = True, dtype: torch.dtype = torch.float32):
+    def __init__(self, dim: int, enabled: bool = True, dtype: torch.dtype = torch.float32,
+                 eps: float = LN_EPS):
         super().__init__()
         self.enabled = enabled
         self.compute_dtype = dtype
+        self.eps = eps
         if enabled:
             self.weight = nn.Parameter(torch.ones(dim))
             self.bias = nn.Parameter(torch.zeros(dim))
@@ -60,7 +63,7 @@ class Norm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.enabled:
             return x
-        return layer_norm(x, self.weight, self.bias, self.compute_dtype)
+        return layer_norm(x, self.weight, self.bias, self.compute_dtype, self.eps)
 
 
 class MLP(nn.Module):

@@ -5,7 +5,7 @@ PyTorch cannot reproduce those streams. So the port's entry points take an
 explicit noise source. Every draw is ``draw(name, shape, kind, t=None)``:
 ``kind`` is the distribution's ``NOISE`` (``"gumbel"``, ``"normal"`` or
 ``"uniform"``, see ``models/distributions.py``) and ``t`` the step of a
-rollout. The names, in the order ``Dreamer`` asks for them:
+rollout. The names, in the order ``Dreamer`` asks for them, then the baselines':
 
 * ``posterior_z``: the posterior-loop latent noise (T, B*I, S, K), drawn up
   front for the whole loop (rssm.py:52-65, 199); gumbel for discrete latents,
@@ -15,7 +15,10 @@ rollout. The names, in the order ``Dreamer`` asks for them:
   step t, (M, A) and (M, S, K);
 * ``log_action`` / ``log_z``: the same for the ``do_dream_tensors`` rollout
   (T-1 steps at M = B);
-* ``action``: the action noise of ``Dreamer.inference``, (1, B, A).
+* ``action``: the action noise of ``Dreamer.inference``, (1, B, A);
+* ``embed_z`` / ``embed_pred_z``: the baselines' VAE (``models/baselines.py``):
+  the standard normal of its posterior sample and, under ``do_image_pred``,
+  of its prior sample, (T, B, I, S) each.
 
 :class:`GeneratorNoise` draws them from a ``torch.Generator`` on the device;
 :class:`ReplayNoise` feeds arrays computed elsewhere (the parity tests replay

@@ -8,12 +8,18 @@ Counterpart of ``pydreamer_tpu/training/train_step.py:53-162``:
 * one forward computes all four losses and ONE ``backward()`` over their sum
   yields the partitioned gradients (each loss touches only its own
   parameters, see ``models/dreamer.py``);
-* pre-clip gradient norms per group are reported as ``grad_norm``,
-  ``grad_norm_probe``, ``grad_norm_actor`` and ``grad_norm_critic``;
-* each group wm / probe / actor / critic is clipped by its global norm with
-  optax's rule (scale by ``max/norm`` when ``norm > max``, not
-  ``clip_grad_norm_``'s ``max/(norm+1e-6)``) and updated by AdamW with
-  ``weight_decay=0`` and ``eps=adam_eps``, each with its own learning rate;
+* the parameters are split as JAX labels its params tree, by top-level key
+  (``make_optimizer_labels``, train_step.py:38-50): ``probe``, ``actor`` and
+  ``critic`` are their own groups, every other key (``wm``) is ``wm``, and
+  under ``probe_gradients`` the probe joins the ``wm`` group. A baseline
+  (``WorldModelProbe``) has only ``wm`` and ``probe``;
+* pre-clip gradient norms per top-level key are reported as ``grad_norm``
+  (wm), ``grad_norm_probe``, ``grad_norm_actor`` and ``grad_norm_critic``,
+  whatever the groups;
+* each group is clipped by its global norm with optax's rule (scale by
+  ``max/norm`` when ``norm > max``, not ``clip_grad_norm_``'s
+  ``max/(norm+1e-6)``) and updated by AdamW with ``weight_decay=0`` and
+  ``eps=adam_eps``, each with its own learning rate;
 * the critic targets are frozen (no gradient, not in the optimizer). In JAX
   the auxiliary critic's target sits in the ``wm`` subtree with zero
   gradients, which leaves both the update and ``grad_norm`` as they are here.
@@ -31,22 +37,35 @@ from ..device import resolve_device
 from ..models.functions import global_norm
 from ..models.noise import GeneratorNoise
 
-__all__ = ["TrainStep", "param_groups", "clip_by_global_norm_"]
+__all__ = ["TrainStep", "param_parts", "param_groups", "clip_by_global_norm_"]
 
-GROUP_METRICS = (("wm", "grad_norm"), ("probe", "grad_norm_probe"),
-                 ("actor", "grad_norm_actor"), ("critic", "grad_norm_critic"))
+GROUPS = ("wm", "probe", "actor", "critic")
+METRICS = {"wm": "grad_norm", "probe": "grad_norm_probe", "actor": "grad_norm_actor",
+           "critic": "grad_norm_critic"}
 
 
-def param_groups(model, conf) -> Dict[str, List[torch.nn.Parameter]]:
-    """Parameters of each optimizer group (train_step.py:38-72)."""
-    groups = {
-        "wm": [p for p in model.wm.parameters() if p.requires_grad],
-        "probe": list(model.probe.parameters()),
-        "actor": list(model.ac.actor.parameters()),
-        "critic": list(model.ac.critic.parameters()),
-    }
-    if conf.get("probe_gradients", False):
-        groups["wm"] += groups.pop("probe")
+def param_parts(model) -> Dict[str, List[torch.nn.Parameter]]:
+    """Trainable parameters by the JAX params tree's top-level key: the
+    model's children, with ``ac`` split into ``actor`` and ``critic`` (its
+    frozen ``critic_target`` has none) and any key but these four in ``wm``."""
+    children = dict(model.named_children())
+    if "ac" in children:
+        ac = children.pop("ac")
+        children.update(actor=ac.actor, critic=ac.critic)
+    parts: Dict[str, List[torch.nn.Parameter]] = {}
+    for name, child in children.items():
+        parts.setdefault(name if name in GROUPS else "wm", []).extend(
+            p for p in child.parameters() if p.requires_grad)
+    return {name: parts[name] for name in GROUPS if parts.get(name)}
+
+
+def param_groups(model, conf) -> Dict[str, List[str]]:
+    """The parts (``param_parts``' keys) in each optimizer group
+    (train_step.py:38-72)."""
+    probe_label = "wm" if conf.get("probe_gradients", False) else "probe"
+    groups: Dict[str, List[str]] = {}
+    for part in param_parts(model):
+        groups.setdefault(probe_label if part == "probe" else part, []).append(part)
     return groups
 
 
@@ -58,7 +77,8 @@ def clip_by_global_norm_(grads: List[torch.Tensor], norm: torch.Tensor, max_norm
 
 
 class TrainStep:
-    """Owns the optimizer of a ``Dreamer`` and runs its gradient step."""
+    """Owns the optimizer of a ``Dreamer`` or ``WorldModelProbe`` and runs its
+    gradient step."""
 
     def __init__(self, model, conf, device: str | torch.device = "cuda"):
         self.device = resolve_device(device)
@@ -66,9 +86,12 @@ class TrainStep:
             raise ValueError(f"model is on {model.device}, TrainStep on {self.device}")
         self.model = model
         self.conf = conf
-        self.target_interval = conf.get("target_interval", 0)
+        # The target copies run only where the model has the targets (JAX:
+        # ``if "critic_target" in params``); a baseline has neither.
+        self.target_interval = conf.get("target_interval", 0) if hasattr(model, "ac") else 0
         self.target_interval_aux = (conf.get("target_interval_aux", 0)
-                                    if conf.get("aux_critic", False) else 0)
+                                    if getattr(model.wm, "ac_aux", None) is not None else 0)
+        self.parts = param_parts(model)
         self.groups = param_groups(model, conf)
         lrs = {"wm": conf.adam_lr, "probe": conf.adam_lr,
                "actor": conf.adam_lr_actor or conf.adam_lr,
@@ -77,7 +100,8 @@ class TrainStep:
         self.clips = {"wm": conf.grad_clip, "probe": conf.grad_clip,
                       "actor": clip_ac, "critic": clip_ac}
         self.optimizer = torch.optim.AdamW(
-            [{"params": ps, "lr": lrs[name], "name": name} for name, ps in self.groups.items()],
+            [{"params": [p for part in parts for p in self.parts[part]], "lr": lrs[name],
+              "name": name} for name, parts in self.groups.items()],
             eps=conf.adam_eps, weight_decay=0.0)
 
     def __call__(self, obs: Dict[str, torch.Tensor], in_state, step: int,
@@ -100,16 +124,17 @@ class TrainStep:
         sum(losses.values()).backward()
 
         metrics = dict(metrics)
-        for name, metric in GROUP_METRICS:
-            if name not in self.groups:
-                continue
-            params = self.groups[name]
-            grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
-            for p, g in zip(params, grads):
-                p.grad = g
-            norm = global_norm(grads)
-            metrics[metric] = norm
-            clip_by_global_norm_(grads, norm, self.clips[name])
+        grads, norms = {}, {}
+        for part, params in self.parts.items():
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            grads[part] = [p.grad for p in params]
+            norms[part] = metrics[METRICS[part]] = global_norm(grads[part])
+        for name, parts in self.groups.items():
+            norm = torch.stack([norms[part] for part in parts]).square().sum().sqrt()
+            clip_by_global_norm_([g for part in parts for g in grads[part]], norm,
+                                 self.clips[name])
         self.optimizer.step()
         metrics.update({k: v.detach() for k, v in losses.items()})
         return out_state, metrics, tensors, dream_tensors

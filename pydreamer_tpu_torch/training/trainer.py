@@ -36,6 +36,7 @@ from ..conf import Conf
 from ..data import (ParallelLoader, Preprocessor, SequentialDataset, make_repository,
                     prefetch_iterator)
 from ..device import resolve_device
+from ..models.baselines import WorldModelProbe
 from ..models.dreamer import Dreamer
 from ..models.noise import GeneratorNoise
 from ..tools import Timer, configure_logging, logger, print_once, timers_summary
@@ -50,12 +51,11 @@ def to_list(s):
 
 
 def make_model(conf, device: str | torch.device = "cuda"):
-    """Model factory (reference: train.py:104-107)."""
+    """Model factory (reference: train.py:104-107): ``Dreamer``, or a
+    baseline world model with its probe."""
     if conf.model == "dreamer":
         return Dreamer(conf, device=device)
-    raise NotImplementedError(
-        f"model={conf.model!r}: the baseline world models are not ported yet "
-        "(ROADMAP.md §2 item 5)")
+    return WorldModelProbe(conf, device=device)
 
 
 def run(conf: Conf, run_dir: Optional[str] = None, max_steps: Optional[int] = None,
@@ -377,7 +377,7 @@ def _to_numpy(x) -> np.ndarray:
 def evaluate(prefix: str, steps: int, model, data_iterator: Iterator, run_: Run,
              eval_batches: int, eval_samples: int, keep_state: bool, save_size: int):
     """Open/closed-loop eval protocol (reference: train.py:306-408) through
-    ``Dreamer.training_step`` without gradients; the noise is a
+    the model's ``training_step`` without gradients; the noise is a
     ``GeneratorNoise`` seeded from ``steps``."""
     start_time = time.time()
     device = model.device

@@ -38,7 +38,9 @@ def test_port_imports_no_jax_and_no_jax_package():
             for f in files}
     assert want <= set(out["imported"]), want - set(out["imported"])
     assert {"pydreamer_tpu_torch.models.noise", "pydreamer_tpu_torch.training.trainer",
-            "pydreamer_tpu_torch.data.prefetch", "pydreamer_tpu_torch.native"} <= want
+            "pydreamer_tpu_torch.data.prefetch", "pydreamer_tpu_torch.native",
+            "pydreamer_tpu_torch.models.probes", "pydreamer_tpu_torch.models.baselines",
+            "pydreamer_tpu_torch.analysis"} <= want
     bad = [m for m in out["modules"]
            if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "msgpack")
            or m == "pydreamer_tpu" or m.startswith("pydreamer_tpu.")]
@@ -75,9 +77,13 @@ def test_entry_points_refuse_cuda_without_a_card(monkeypatch):
 @pytest.mark.parametrize("key,value", [("probe_model", "map"), ("probe_model", "goals"),
                                        ("probe_model", "map+goals")])
 def test_out_of_scope_options_raise(key, value):
-    conf = graft._make_conf(tiny=True).replace(**{key: value})
+    """Every probe of the JAX package builds; what JAX refuses (an unknown
+    probe, a map decoder other than ``dense``) raises NotImplementedError."""
+    conf = graft._make_conf(tiny=True).replace(map_size=5, map_channels=4, goals_size=2,
+                                               map_hidden_dim=16, **{key: value})
+    assert type(Dreamer(conf, device="cpu").probe).__name__ != "NoProbeHead"
     with pytest.raises(NotImplementedError):
-        Dreamer(conf, device="cpu")
+        Dreamer(conf.replace(**{key: value + "_x"}), device="cpu")
 
 
 @pytest.mark.parametrize("overrides", [

@@ -113,13 +113,14 @@ def _close(got, want, rtol, atol, msg):
     np.testing.assert_allclose(got, np.asarray(want), rtol=rtol, atol=atol, err_msg=msg)
 
 
-def paired_models(conf, seed=0):
-    """The JAX model and the port's, with the port's seeded weights carried
-    into JAX's params tree through ``convert.py`` (shaped by ``eval_shape``,
-    so JAX's init need not compile)."""
-    jmodel = JDreamer(conf)
+def paired_models(conf, seed=0, classes=(JDreamer, Dreamer)):
+    """The JAX model and the port's (``classes``: the two model classes), with
+    the port's seeded weights carried into JAX's params tree through
+    ``convert.py`` (shaped by ``eval_shape``, so JAX's init need not compile)."""
+    jclass, tclass = classes
+    jmodel = jclass(conf)
     torch.manual_seed(seed)
-    model = Dreamer(conf, device="cpu")
+    model = tclass(conf, device="cpu")
     like = jax.eval_shape(jmodel.init, jax.random.PRNGKey(seed))
     params = jax.tree_util.tree_map(jnp.asarray, state_dict_to_jax(model.state_dict(), like))
     for (path, want), got in zip(jax.tree_util.tree_flatten_with_path(like)[0],
@@ -129,14 +130,16 @@ def paired_models(conf, seed=0):
     return jmodel, params, model
 
 
-def run_two_steps(conf, obs, flags=False):
+def run_two_steps(conf, obs, flags=False, pair=paired_models, noise=_jax_noise):
     """Two ``TrainStep`` steps of JAX and of the port from the same weights,
     batch and noise: every JAX metric (rtol 1e-4), every tensor (within 1e-4
     of its largest entry: step 2 starts from parameters that agree to 1e-5,
     and a decoder head passes that on), the out_state and (with ``flags``, ``do_image_pred`` and ``do_dream_tensors``
     on) the dream tensors, then every parameter (atol 1e-5 / rtol 1e-4).
+    ``pair`` builds the two models (``paired_models``: ``Dreamer``) and
+    ``noise(conf, key, step)`` replays JAX's draws (``_jax_noise``: Dreamer's).
     Returns the port's model."""
-    jmodel, params, model = paired_models(conf)
+    jmodel, params, model = pair(conf)
     jstep = JTrainStep(jmodel, conf, donate=False)
     opt_state = jstep.init_optimizer(params)
     step_fn = TrainStep(model, conf, device="cpu")
@@ -151,7 +154,7 @@ def run_two_steps(conf, obs, flags=False):
             params, opt_state, jobs, jstate, step, np.asarray(key),
             do_image_pred=flags, do_dream_tensors=flags)
         tstate, tmetrics, ttensors, tdream = step_fn(
-            tobs, tstate, step, _jax_noise(conf, key, step),
+            tobs, tstate, step, noise(conf, key, step),
             do_image_pred=flags, do_dream_tensors=flags)
         assert set(jmetrics) <= set(tmetrics)
         for name, want in jmetrics.items():
@@ -162,8 +165,11 @@ def run_two_steps(conf, obs, flags=False):
                 scale = np.nanmax(np.abs(np.asarray(want[name])), initial=0.0)
                 _close(got[name], want[name], TENSOR_TOL, TENSOR_TOL * scale,
                        f"step {step} {name}")
-        for got, want, name in zip(tstate, jstate, ("h", "z")):
-            _close(got, want, PARAM_RTOL, PARAM_ATOL, f"step {step} out_state {name}")
+        tleaves, jleaves = jax.tree_util.tree_leaves(tstate), jax.tree_util.tree_leaves(jstate)
+        assert len(tleaves) == len(jleaves)
+        for i, (got, want) in enumerate(zip(tleaves, jleaves)):
+            assert tuple(got.shape) == tuple(want.shape)
+            _close(got, want, PARAM_RTOL, PARAM_ATOL, f"step {step} out_state {i}")
 
     back = state_dict_to_jax(model.state_dict(), params)
     flat_want = jax.tree_util.tree_flatten_with_path(params)[0]

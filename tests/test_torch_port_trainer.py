@@ -188,5 +188,8 @@ def test_run_refuses_cuda_without_a_card(tmp_path, monkeypatch):
 
 
 def test_make_model_raises_for_baselines():
-    with pytest.raises(NotImplementedError, match="item 5"):
-        trainer.make_model(_conf(model="vae"), "cpu")
+    """The four baselines build (tests/test_torch_port_baselines.py trains
+    them); a name that is neither ``dreamer`` nor a baseline raises, as in JAX."""
+    assert type(trainer.make_model(_conf(model="vae"), "cpu")).__name__ == "WorldModelProbe"
+    with pytest.raises(ValueError, match="unknown baseline model"):
+        trainer.make_model(_conf(model="vae_x"), "cpu")
