@@ -95,6 +95,29 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
    step and the busy time; for the two GRU models a step from the
    carried state differs from one from zeros on the streams that go on, and
    only there. 13c: ``gru_vae`` at ``iwae_samples: 3`` for one step.
+14. The learner on a mesh of ranks (``parallel/``). 14a: ``trainer.run`` on
+   the flagship model from phase 11's files (``data_workers: 1``, 8 steps,
+   step 1 a log step, a checkpoint at 8) at world size 1 under the production
+   backend ``cpu:gloo,cuda:nccl``, then the same 8 steps with no group: the
+   ``train/`` losses and the final weights agree (cuDNN held deterministic;
+   bit for bit is reported, within 1e-4 relative / 1e-3 absolute is
+   required), K1's launches by rows match the steps. 14b: K1 ``skinny`` at
+   M=16 and ``wide`` at M=768 (the data ranks' shapes) against its plain
+   version, timed as in 2; then two ranks on the one card over gloo (NCCL
+   refuses two ranks on one device), ``mesh_data: 2``, each stepping on
+   B=16 of one B=32 batch from the same weights with its rows of the global
+   noise: 3 bf16 steps against one process at B=32 (step 1, from the same
+   weights: every world-model loss and ``grad_norm`` within 2e-2 relative;
+   steps 2-3: ``loss_model`` and ``loss_image`` within 2e-2, the rest
+   reported, see ``WM_TOTALS``), 3 float32 steps (K1's ``f32`` schedule,
+   TF32 off) with every world-model metric within 1e-4 at every step, and
+   per rank per step 48 ``skinny`` [M=16] and 15 ``wide`` [M=768] launches,
+   none ``generic``. 14c: ``mesh_model: 2``, ``tp_min_size: 1024``
+   on two ranks: the sharded parameters listed, each rank's parameter and
+   AdamW bytes smaller by half of the sharded bytes, 3 steps against one
+   process as in 14b, K1 at M=32 / M=1536 on the gathered gate kernels. The
+   ranks' ms per step are printed beside phase 4's: two ranks share one card
+   and one host, so they are no multi-GPU number.
 
 Prints one JSON line of per-kernel numbers (``launches``: the count on the
 path that runs the shape, ``launches_per_step``: per train step or acting
@@ -103,7 +126,8 @@ as the last line ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``, ``chiprun_out/chip_smoke_profile.txt`` and
 ``chiprun_out/learner_metrics.jsonl`` (phase 11's metrics),
 ``chiprun_out/launch_log.txt`` and ``chiprun_out/launch_metrics.jsonl``
-(phase 12's launcher run), ``chiprun_out/probe_phase.json`` (phase 13);
+(phase 12's launcher run), ``chiprun_out/probe_phase.json`` (phase 13),
+``chiprun_out/phase14_*_rank*.json`` (phase 14's ranks);
 phase 11's episode files stay in
 ``chiprun_out/learner_episodes/`` and the run directories (under ``runs/``,
 git-ignored) are removed at the end.
@@ -1112,6 +1136,338 @@ def probe_phase(torch, k1, report, gen, device):
     return launches, 2
 
 
+# Phase 14: the learner on a mesh of ranks. 14a runs the production backend
+# (cpu:gloo,cuda:nccl) at world size 1; 14b and 14c put two ranks on the one
+# card over gloo (NCCL refuses two ranks on one device), which takes device
+# tensors.
+MESH_STEPS = 3
+MESH_RTOL = 2e-2      # bf16: one rounding can flip an argmax sample (ROADMAP.md §2 item 11)
+MESH_RTOL_F32 = 1e-4  # float32, TF32 off: sums in another order only
+WM_METRICS = ("loss_model", "loss_image", "loss_reward", "loss_terminal", "loss_kl", "grad_norm")
+# Step 1 starts from the same weights. After it, in bf16, the ranks' weights
+# differ from the single process's by the order of the gradient sums, and
+# bf16 roundings and argmax samples in the next forward amplify that (2e-3 to
+# 4e-2 in the reward head, the KL and grad_norm by step 3 on the H100): from
+# step 2 only the world model's totals are held to MESH_RTOL in bf16, the
+# rest reported. The float32 steps hold every world-model metric at every
+# step to MESH_RTOL_F32.
+WM_TOTALS = ("loss_model", "loss_image")
+RANK_TIMEOUT_S = 420
+TP_MIN_SIZE = 1024    # 14c: the GRU gate kernels (3H = 3072) and each Dense with out >= 1024
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mesh_rank(rank: int, port: int, mode: str, out_path: str, device: str = "cuda:0") -> None:
+    """One of two ranks on ``device`` (the one card): 3 flagship steps on its
+    rows of one global batch (``mode`` "dp": data 2; "tp": model 2,
+    ``TP_MIN_SIZE``), then for "dp" 3 float32 steps; K1's launches by rows
+    each step, the rank's parameter and AdamW bytes. Writes its report to
+    ``out_path``."""
+    import torch
+    import torch.distributed as dist
+
+    from pydreamer_tpu_torch.conf import Conf
+    from pydreamer_tpu_torch.models.dreamer import Dreamer
+    from pydreamer_tpu_torch.ops import gru_dv2 as k1
+    from pydreamer_tpu_torch.parallel import DistributedContext, batch_sharding
+    from pydreamer_tpu_torch.parallel.multihost import COLLECTIVE_TIMEOUT
+    from pydreamer_tpu_torch.training.train_step import TrainStep
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(device)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2,
+                            rank=rank, timeout=COLLECTIVE_TIMEOUT)
+    mesh = dict(mesh_data=2, mesh_model=1) if mode == "dp" else dict(mesh_data=1, mesh_model=2,
+                                                                      tp_min_size=TP_MIN_SIZE)
+    out = {"rank": rank, "steps": []}
+
+    def run(conf, n):
+        ctx = DistributedContext(conf, device)
+        torch.manual_seed(0)
+        model = Dreamer(conf, device=device)
+        whole = sum(p.numel() * p.element_size() for p in model.parameters())
+        whole_trainable = sum(p.numel() * p.element_size() for p in model.parameters()
+                              if p.requires_grad)
+        ts = TrainStep(model, conf, device=device, ctx=ctx)
+        sharded = sorted(n_ for n_, s in ctx.shardings.items() if s.axis == "model")
+        gen = torch.Generator(device=device).manual_seed(14)
+        obs = {k: batch_sharding(ctx.mesh).local(ctx.mesh, v).contiguous()
+               for k, v in make_obs(torch, conf, gen, device).items()}
+        state = model.init_state(obs["action"].shape[1])
+        steps = []
+        for step in range(1, n + 1):
+            k1.LAUNCHES.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics, _, _ = ts(obs, state, step)
+            torch.cuda.synchronize()
+            steps.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                              metrics={k: v.item() for k, v in metrics.items()},
+                              by_rows=dict(k1.LAUNCHES.by_rows),
+                              by_schedule=dict(k1.LAUNCHES.by_schedule)))
+        moments = sum(v.numel() * v.element_size() for s in ts.optimizer.state.values()
+                      for k, v in s.items() if k in ("exp_avg", "exp_avg_sq"))
+        info = dict(steps=steps, sharded=sharded, whole_param_bytes=whole,
+                    whole_trainable_bytes=whole_trainable,
+                    param_bytes=sum(p.numel() * p.element_size() for p in model.parameters()),
+                    sharded_whole_bytes={n_: p.numel() * ctx.mesh.n_model * p.element_size()
+                                         for n_, p in model.named_parameters() if n_ in sharded},
+                    trainable_sharded=[n_ for n_, p in model.named_parameters()
+                                       if n_ in sharded and p.requires_grad],
+                    adam_bytes=moments, state_rows=int(state[0].shape[0]),
+                    state_finite=bool(torch.isfinite(state[0]).all()))
+        del model, ts
+        torch.cuda.empty_cache()
+        return info
+
+    out["bf16"] = run(Conf(dict(FLAGSHIP, **mesh)), MESH_STEPS)
+    if mode == "dp":
+        out["f32"] = run(Conf(dict(FLAGSHIP, precision="float32", **mesh)), MESH_STEPS)
+    dist.destroy_process_group()
+    Path(out_path).write_text(json.dumps(out))
+
+
+def spawn_mesh(mode: str, device: str = "cuda:0") -> list:
+    """Two ``mesh_rank`` processes to their end; either failing or outliving
+    ``RANK_TIMEOUT_S`` fails the phase. -> their reports."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    port = _free_port()
+    paths = [OUT_DIR / f"phase14_{mode}_rank{r}.json" for r in range(2)]
+    for p in paths:
+        p.unlink(missing_ok=True)
+    procs = [ctx.Process(target=mesh_rank, args=(r, port, mode, str(paths[r]), device))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    deadline = time.time() + RANK_TIMEOUT_S
+    try:
+        for p in procs:
+            p.join(timeout=max(deadline - time.time(), 1))
+    finally:
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    if alive or codes != [0, 0]:
+        raise AssertionError(f"[14] {mode} ranks: exit codes {codes}, "
+                             f"{len(alive)} killed at the {RANK_TIMEOUT_S} s limit")
+    reports = [json.loads(p.read_text()) for p in paths]
+    for r in reports:  # JSON keys are strings; the launch counts key by rows
+        for part in ("bf16", "f32"):
+            for step in r.get(part, {}).get("steps", []):
+                step["by_rows"] = {int(k): v for k, v in step["by_rows"].items()}
+    return reports
+
+
+def single_steps(torch, conf, n: int, device):
+    """The reference: one process, the whole batch, the same seeds."""
+    from pydreamer_tpu_torch.models.dreamer import Dreamer
+    from pydreamer_tpu_torch.training.train_step import TrainStep
+    torch.manual_seed(0)
+    model = Dreamer(conf, device=device)
+    ts = TrainStep(model, conf, device=device)
+    gen = torch.Generator(device=device).manual_seed(14)
+    obs = make_obs(torch, conf, gen, device)
+    state = model.init_state(conf.batch_size)
+    steps = []
+    for step in range(1, n + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics, _, _ = ts(obs, state, step)
+        torch.cuda.synchronize()
+        steps.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                          metrics={k: v.item() for k, v in metrics.items()}))
+    del model, ts
+    torch.cuda.empty_cache()
+    return steps
+
+
+def compare_steps(got, want, rtol: float, what: str, later=WM_TOTALS) -> list:
+    """The relative difference of every metric of every step from the
+    reference, printed; then each world-model metric of step 1 (the same
+    weights) and ``later`` of every later step held within ``rtol``. -> the
+    differences by step."""
+    rels = [{k: abs(g["metrics"][k] - v) / max(abs(v), 1e-6) for k, v in w["metrics"].items()}
+            for g, w in zip(got, want)]
+    print(f"{what}: rel diff from one process by step "
+          + "; ".join(", ".join(f"{k} {r[k]:.2e}" for k in WM_METRICS) for r in rels))
+    for i, r in enumerate(rels):
+        for k in WM_METRICS if i == 0 else later:
+            if not r[k] <= rtol:
+                raise AssertionError(f"{what} step {i + 1} {k}: {got[i]['metrics'][k]} vs one "
+                                     f"process {want[i]['metrics'][k]} (rel {r[k]:.3g} > {rtol})")
+    return rels
+
+
+def mesh_phase(torch, k1, conf, report, path_launches, gen, device, peaks, unfused) -> dict:
+    """Phase 14. Returns the data-parallel rank-steps that made the M=16 /
+    M=768 launches and the tensor-parallel ones at M=32 / M=1536."""
+    import os
+    import shutil
+
+    import torch.distributed as dist
+
+    from pydreamer_tpu_torch.tracking import Run, load_checkpoint_file
+    from pydreamer_tpu_torch.training import trainer
+
+    T, B, H_imag = conf.batch_length, conf.batch_size, conf.imag_horizon
+    In, H = conf.hidden_dim, conf.deter_dim
+    out = report["mesh"] = {}
+
+    # 14a. trainer.run at world size 1 under the production backend, then the
+    # same 8 steps with no group. cuDNN is held deterministic for both runs.
+    episodes = OUT_DIR / "learner_episodes"
+    aconf = conf.replace(offline_data_dir=str(episodes / "train"),
+                         offline_eval_dir=str(episodes / "eval"),
+                         **dict(LEARNER, data_workers=1, n_steps=8, save_interval=8,
+                                eval_interval=0, log_interval=4, mesh_data=0, mesh_model=1))
+    runs = Path(__file__).resolve().parent / "runs"
+    cudnn_flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    env = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()), WORLD_SIZE="1", RANK="0",
+               LOCAL_RANK="0", LOCAL_WORLD_SIZE="1")
+    results = {}
+    try:
+        for tag in ("group", "plain"):
+            run_dir = runs / f"chip_smoke_mesh_{tag}"
+            shutil.rmtree(run_dir, ignore_errors=True)
+            if tag == "group":
+                os.environ.update(env)
+            k1.LAUNCHES.reset()
+            t0 = time.perf_counter()
+            try:
+                trainer.run(aconf, run_dir=str(run_dir), device="cuda")
+                backend = str(dist.get_backend()) if dist.is_initialized() else None
+            finally:
+                if dist.is_initialized():
+                    dist.destroy_process_group()
+                for k in env:
+                    os.environ.pop(k, None)
+            rows = [m for m in Run(run_dir).read_metrics() if "train/loss_model" in m]
+            saved, step = load_checkpoint_file(run_dir / "checkpoints" / "latest.ckpt", "cpu")
+            results[tag] = dict(s=time.perf_counter() - t0, backend=backend, rows=rows, step=step,
+                                model=saved["model"], by_rows=dict(k1.LAUNCHES.by_rows),
+                                dumps=len(list((run_dir / "d2_wm_closed").glob("*.npz"))))
+            shutil.rmtree(run_dir)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn_flags
+    g, p = results["group"], results["plain"]
+    want_rows = {B: 8 * T + T - 1, T * B: 8 * H_imag}  # step 1 logs: T-1 more skinny
+    losses = {k: (g["rows"][-1][k], p["rows"][-1][k]) for k in g["rows"][-1]
+              if k.startswith("train/loss_")}
+    loss_rel = max(abs(a - b) / max(abs(b), 1e-6) for a, b in losses.values())
+    weight_diff = max((g["model"][k].float() - v.float()).abs().max().item()
+                      for k, v in p["model"].items())
+    out["14a"] = dict(backend=g["backend"], seconds=[g["s"], p["s"]], losses=losses,
+                      loss_max_rel=loss_rel, weight_max_abs_diff=weight_diff,
+                      bitwise=loss_rel == 0.0 and weight_diff == 0.0,
+                      launches_by_rows=[g["by_rows"], p["by_rows"]], dumps=g["dumps"])
+    print(f"[14a] trainer.run under {g['backend']} at world size 1 ({g['s']:.1f} s) vs no group "
+          f"({p['s']:.1f} s): train losses max rel diff {loss_rel:.3g}, weights max abs diff "
+          f"{weight_diff:.3g} ({'bit for bit' if out['14a']['bitwise'] else 'not bitwise'}); "
+          f"K1 launches {g['by_rows']} / {p['by_rows']}")
+    if g["backend"] is None or "nccl" not in g["backend"] or g["step"] != 8 or p["step"] != 8:
+        raise AssertionError(f"[14a] backend {g['backend']}, checkpoints at {g['step']}/{p['step']}")
+    if g["by_rows"] != want_rows or p["by_rows"] != want_rows or g["dumps"] != 1:
+        raise AssertionError(f"[14a] K1 launches {g['by_rows']} / {p['by_rows']}, expected "
+                             f"{want_rows}; d2_wm_closed dumps {g['dumps']}")
+    if not (loss_rel <= MESH_RTOL_F32 and weight_diff <= 1e-3):
+        raise AssertionError(f"[14a] the group's run left the plain one: losses {losses}, "
+                             f"weights max abs diff {weight_diff}")
+
+    # The reference for 14b and 14c: one process, B=32, the same seeds.
+    ref = single_steps(torch, conf, MESH_STEPS, device)
+    ref32 = single_steps(torch, conf.replace(precision="float32"), MESH_STEPS, device)
+
+    # 14b. Data parallel: two ranks, B=16 each.
+    k1_rows = {}
+    for M, want in ((B // 2, "skinny"), (T * B // 2, "wide")):
+        res = check_k1(torch, k1, M, In, H, torch.bfloat16, want, gen, device, True, peaks, unfused)
+        report["k1"].append(res)
+        k1_rows[M] = res
+        print(f"[14b] K1 {want} M={M} H={H}: {k1_summary(res)}")
+    dp = spawn_mesh("dp", str(device))
+    worst = [compare_steps(r["bf16"]["steps"], ref, MESH_RTOL, f"[14b] rank {r['rank']}")
+             for r in dp]
+    worst32 = [compare_steps(r["f32"]["steps"], ref32, MESH_RTOL_F32,
+                             f"[14b] float32 rank {r['rank']}", later=WM_METRICS) for r in dp]
+    want_dp = ({B // 2: T, T * B // 2: H_imag}, {"skinny": T, "wide": H_imag})
+    for r in dp:
+        for s in r["bf16"]["steps"]:
+            if (s["by_rows"], s["by_schedule"]) != want_dp:
+                raise AssertionError(f"[14b] rank {r['rank']} K1 launches {s['by_rows']} "
+                                     f"{s['by_schedule']}, expected {want_dp}")
+        if r["bf16"]["state_rows"] != B // 2 or not r["bf16"]["state_finite"]:
+            raise AssertionError(f"[14b] rank {r['rank']} out_state rows {r['bf16']['state_rows']}")
+    out["14b"] = dict(ms_per_step=[[s["ms"] for s in r["bf16"]["steps"]] for r in dp],
+                      f32_ms=[[s["ms"] for s in r["f32"]["steps"]] for r in dp],
+                      single_ms=[s["ms"] for s in ref], single_f32_ms=[s["ms"] for s in ref32],
+                      rel_diff=worst, rel_diff_f32=worst32,
+                      launches=[[s["by_rows"] for s in r["bf16"]["steps"]] for r in dp])
+    print(f"[14b] data parallel, 2 ranks on one card: ms/step {out['14b']['ms_per_step']} "
+          f"(one process {[round(s['ms'], 2) for s in ref]}; phase 4 {report['step_ms']:.2f}); "
+          f"world-model metrics within {MESH_RTOL} (bf16) and {MESH_RTOL_F32} (f32) of one "
+          f"process, step 1 max rel {max(w[0][k] for w in worst for k in WM_METRICS):.3g} / "
+          f"{max(w[0][k] for w in worst32 for k in WM_METRICS):.3g}; K1 per rank per step "
+          f"{dp[0]['bf16']['steps'][0]['by_rows']}")
+    path_launches[("skinny", B // 2, H)] = sum(s["by_schedule"]["skinny"] for r in dp
+                                               for s in r["bf16"]["steps"])
+    path_launches[("wide", T * B // 2, H)] = sum(s["by_schedule"]["wide"] for r in dp
+                                                 for s in r["bf16"]["steps"])
+
+    # 14c. Tensor parallel: two ranks, the wide kernels split.
+    tp = spawn_mesh("tp", str(device))
+    worst_tp = [compare_steps(r["bf16"]["steps"], ref, MESH_RTOL, f"[14c] rank {r['rank']}")
+                for r in tp]
+    want_tp = ({B: T, T * B: H_imag}, {"skinny": T, "wide": H_imag})
+    for r in tp:
+        b = r["bf16"]
+        shard_bytes = sum(b["sharded_whole_bytes"].values())
+        shard_trainable = sum(v for k, v in b["sharded_whole_bytes"].items()
+                              if k in b["trainable_sharded"])
+        if b["param_bytes"] != b["whole_param_bytes"] - shard_bytes // 2:
+            raise AssertionError(f"[14c] rank {r['rank']}: {b['param_bytes']} parameter bytes, "
+                                 f"expected {b['whole_param_bytes']} - {shard_bytes} / 2")
+        if b["adam_bytes"] != 2 * (b["whole_trainable_bytes"] - shard_trainable // 2):
+            raise AssertionError(f"[14c] rank {r['rank']}: AdamW {b['adam_bytes']} bytes, "
+                                 f"expected 2 x ({b['whole_trainable_bytes']} - "
+                                 f"{shard_trainable} / 2)")
+        for s in b["steps"]:
+            if (s["by_rows"], s["by_schedule"]) != want_tp:
+                raise AssertionError(f"[14c] rank {r['rank']} K1 launches {s['by_rows']} "
+                                     f"{s['by_schedule']}, expected {want_tp}")
+    t0 = tp[0]["bf16"]
+    if not any(n.endswith("weight_ih") for n in t0["sharded"]):
+        raise AssertionError(f"[14c] the GRU gate kernels are not sharded: {t0['sharded']}")
+    out["14c"] = dict(sharded=t0["sharded"], sharded_whole_bytes=t0["sharded_whole_bytes"],
+                      whole_param_bytes=t0["whole_param_bytes"], param_bytes=t0["param_bytes"],
+                      adam_bytes=[r["bf16"]["adam_bytes"] for r in tp],
+                      ms_per_step=[[s["ms"] for s in r["bf16"]["steps"]] for r in tp],
+                      rel_diff=worst_tp, launches=[[s["by_rows"] for s in r["bf16"]["steps"]]
+                                                  for r in tp])
+    print(f"[14c] tensor parallel, 2 ranks on one card: sharded {len(t0['sharded'])} parameters "
+          f"{t0['sharded']}; per-rank parameter bytes {t0['param_bytes']} of "
+          f"{t0['whole_param_bytes']} (half of {sum(t0['sharded_whole_bytes'].values())} sharded "
+          f"bytes saved), AdamW {out['14c']['adam_bytes']}; ms/step {out['14c']['ms_per_step']} "
+          f"(phase 4 {report['step_ms']:.2f}); world-model metrics step 1 max rel "
+          f"{max(w[0][k] for w in worst_tp for k in WM_METRICS):.3g}; K1 per rank per step "
+          f"{t0['steps'][0]['by_rows']}")
+    path_launches[("skinny", B, H)] += sum(s["by_schedule"]["skinny"] for r in tp
+                                           for s in r["bf16"]["steps"])
+    path_launches[("wide", T * B, H)] += sum(s["by_schedule"]["wide"] for r in tp
+                                             for s in r["bf16"]["steps"])
+    return dict(dp_rank_steps=2 * MESH_STEPS, tp_rank_steps=2 * MESH_STEPS)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1422,12 +1778,20 @@ def main() -> int:
     for key, n in probe_launches.items():
         path_launches[key] += n
 
+    # 14. The learner on a mesh: NCCL at world size 1, two data ranks, two
+    #     model ranks.
+    mesh_steps = mesh_phase(torch, k1, conf, report, path_launches, gen, device, peaks, unfused)
+
     # Launches by shape on each path: flagship (phase 4, 5 steps), DMC (phase
     # 9, 5 steps) with the MiniWorld probes (phase 13, a step and an eval
     # call), inference (phase 10, 50 calls), the learner's test protocol
-    # (phase 11, per eval call) and the generator's acting calls (phase 12);
-    # 0 where no path runs it.
-    per_step = {(B, H): n_steps, (T * B, H): n_steps, (B, Hd): n_steps + probe_calls,
+    # (phase 11, per eval call), the generator's acting calls (phase 12) and
+    # the mesh's rank-steps (phase 14: data ranks at M=16 / M=768, model ranks
+    # at the flagship shapes); 0 where no path runs it.
+    per_step = {(B, H): n_steps + mesh_steps["tp_rank_steps"],
+                (T * B, H): n_steps + mesh_steps["tp_rank_steps"],
+                (B // 2, H): mesh_steps["dp_rank_steps"],
+                (T * B // 2, H): mesh_steps["dp_rank_steps"], (B, Hd): n_steps + probe_calls,
                 (T * B, Hd): n_steps + probe_calls,
                 (1, Hd): n_calls, (8, Hd): n_calls,
                 (LEARNER["test_batch_size"], H): n_test_calls,

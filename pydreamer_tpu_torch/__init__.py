@@ -10,4 +10,4 @@ when there is no card unless the caller asks for ``"cpu"``
 (:func:`pydreamer_tpu_torch.device.resolve_device`).
 """
 
-__all__ = ["conf", "convert", "device", "models", "ops", "training"]
+__all__ = ["conf", "convert", "device", "models", "ops", "parallel", "training"]

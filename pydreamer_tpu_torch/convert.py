@@ -29,7 +29,8 @@ from typing import Any, Dict, Iterator, Mapping, Tuple
 import numpy as np
 import torch
 
-__all__ = ["jax_to_state_dict", "state_dict_to_jax", "torch_key", "jax_checkpoint_to_torch"]
+__all__ = ["jax_to_state_dict", "state_dict_to_jax", "torch_key", "jax_leaf_shape",
+           "jax_leaf_shapes", "jax_checkpoint_to_torch"]
 
 _INNER = ("Dense_0", "LayerNorm_0")
 _UNDER_AC = ("actor", "critic", "critic_target")
@@ -68,6 +69,41 @@ def torch_key(path: Tuple[str, ...]) -> str:
     if segs[-1] in ("kernel", "scale"):
         segs[-1] = "weight"
     return ".".join(segs)
+
+
+def jax_leaf_shape(key: str, shape: Tuple[int, ...], heads: int = 0) -> Tuple[int, ...]:
+    """The shape of the JAX leaf that the port's parameter ``key`` (of
+    ``shape``) converts from, by the rules above read backwards. ``heads``:
+    the attention heads of an ``attn_*`` module's parameters."""
+    segs, shape = key.split("."), tuple(shape)
+    if len(segs) >= 3 and segs[-3].startswith("attn_"):
+        if segs[-1] == "weight":
+            if segs[-2] == "out":   # (D, heads*head_dim) <- (heads, head_dim, D)
+                return (heads, shape[1] // heads, shape[0])
+            return (shape[1], heads, shape[0] // heads)   # <- (D, heads, head_dim)
+        if segs[-2] != "out":       # flat bias <- (heads, head_dim)
+            return (heads, shape[0] // heads)
+        return shape
+    if segs[-1] == "weight" and len(shape) == 2:     # Linear (out,in) <- Dense (in,out)
+        return shape[::-1]
+    if segs[-1] == "weight" and len(shape) == 4:
+        if segs[-2].startswith("deconv_"):            # (in,out,kh,kw) <- HWIO
+            return (shape[2], shape[3], shape[0], shape[1])
+        return (shape[2], shape[3], shape[1], shape[0])  # OIHW <- HWIO
+    return shape
+
+
+def jax_leaf_shapes(model: torch.nn.Module) -> Dict[str, Tuple[int, ...]]:
+    """``jax_leaf_shape`` of every parameter of ``model``; an ``attn_*``
+    module's heads are its ``nhead``."""
+    out = {}
+    for name, p in model.named_parameters():
+        segs = name.split(".")
+        heads = 0
+        if len(segs) >= 3 and segs[-3].startswith("attn_"):
+            heads = model.get_submodule(".".join(segs[:-2])).nhead
+        out[name] = jax_leaf_shape(name, tuple(p.shape), heads)
+    return out
 
 
 def _to_torch(kind: str, x: np.ndarray) -> np.ndarray:

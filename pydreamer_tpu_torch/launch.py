@@ -11,16 +11,30 @@ Counterpart of ``pydreamer_tpu/launch.py`` (reference: launch.py:16-210):
     (launch.py:114-120,168-178); relaunch a learner that asks to be
     recycled; stop the generators when the learner is done
 
+Learner ranks: JAX's one learner process drives every device of its host.
+The port runs one learner process (rank) per device of the host's share of
+the mesh (``learner_ranks``): ``mesh_data * mesh_model`` ranks over the
+job's nodes when both are given, every visible card when ``mesh_data`` is 0,
+and one rank, with no process group, when there is no card or under
+``debug`` (``mesh_data: 1``). Each rank gets torch's environment
+(``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``,
+``LOCAL_WORLD_SIZE``); a multi-node job sets ``NNODES``, ``NODE_RANK``,
+``MASTER_ADDR`` and ``MASTER_PORT`` (torch's names), else the launcher uses
+one node, ``127.0.0.1`` and a free port. Generators start once per host. The
+watchdog covers every rank; the ranks recycle together (the trainer decides
+it unanimously) and the launcher relaunches all of them.
+
 Device split: the learner trains on the card (``trainer.run``'s rule: the
 CPU only under ``platform: cpu``, the ``debug`` preset) and each generator
 acts on the CPU because this launcher passes ``device="cpu"`` to
-``generator.main``, so only the learner process uses the card. Nothing here
+``generator.main``, so only the learner ranks use the cards. Nothing here
 touches CUDA before the workers are spawned, so no child inherits a CUDA
 context. Every worker's torch gets an equal share of the threads torch
 would use here (``torch.get_num_threads()``: the host's cores, or
-``OMP_NUM_THREADS``), ``threads // (generators + 1)``: torch's default, all
-of them in every process, oversubscribes the host once the generators act,
-and spinning OpenMP threads then hold back the learner's host-bound step.
+``OMP_NUM_THREADS``), ``threads // (generators + ranks)``: torch's default,
+all of them in every process, oversubscribes the host once the generators
+act, and spinning OpenMP threads then hold back the learner's host-bound
+step.
 """
 
 from __future__ import annotations
@@ -29,9 +43,10 @@ import json
 import multiprocessing as mp
 import os
 import signal
+import socket
 import sys
 import time
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -40,7 +55,8 @@ from .tools import configure_logging, logger, print_once
 from .tracking import init_run
 
 __all__ = ["launch", "launch_learner", "launch_generator", "check_subprocesses",
-           "belongs_to_worker", "get_worker_info", "RECYCLE_EXIT_CODE"]
+           "belongs_to_worker", "get_worker_info", "learner_ranks", "rank_environments",
+           "RECYCLE_EXIT_CODE"]
 
 # Learner exit code meaning "relaunch me" (clean self-recycle after hitting
 # conf.max_rss_gb, see training/trainer.py). Distinct from 0 (done) and from
@@ -54,16 +70,63 @@ def _generator_entry(kwargs, num_threads: int):
     generator.main(**kwargs, device="cpu")
 
 
-def _learner_entry(conf, run_dir, num_threads: Optional[int] = None):
+def _learner_entry(conf, run_dir, num_threads: Optional[int] = None,
+                   env: Optional[Dict[str, str]] = None):
+    """One learner rank: ``env`` is its torch environment (none for a lone
+    learner)."""
+    os.environ.update(env or {})
     if num_threads:
         torch.set_num_threads(num_threads)
+    import torch.distributed as dist
+
     from .ops import gru_dv2
     from .training import trainer
     result = trainer.run(conf, run_dir=run_dir)
-    logger.info("Learner K1 launches: by schedule %s, by rows %s",
-                json.dumps(gru_dv2.LAUNCHES.by_schedule), json.dumps(gru_dv2.LAUNCHES.by_rows))
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    logger.info("Learner %sK1 launches: by schedule %s, by rows %s",
+                f"rank {rank} " if rank else "", json.dumps(gru_dv2.LAUNCHES.by_schedule),
+                json.dumps(gru_dv2.LAUNCHES.by_rows))
+    if dist.is_initialized():
+        dist.destroy_process_group()
     if result == "recycle":
         sys.exit(RECYCLE_EXIT_CODE)
+
+
+def learner_ranks(conf) -> int:
+    """Learner ranks on this host: the host's share of ``mesh_data *
+    mesh_model`` over ``NNODES`` nodes, or every visible card under
+    ``mesh_data: 0`` (one without a card or under ``platform: cpu``)."""
+    n_data, n_model = conf.get("mesh_data", 0), max(conf.get("mesh_model", 1), 1)
+    nnodes = int(os.environ.get("NNODES", "1"))
+    if n_data > 0:
+        world = n_data * n_model
+        if world % nnodes:
+            raise ValueError(f"mesh {n_data}x{n_model} does not split over {nnodes} nodes")
+        return world // nnodes
+    if conf.get("platform") == "cpu":
+        return 1
+    return max(torch.cuda.device_count(), 1)
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def rank_environments(n_local: int) -> List[Dict[str, str]]:
+    """torch's environment for each of this host's ``n_local`` ranks, or one
+    empty environment (no process group) for a lone rank on one node."""
+    nnodes = int(os.environ.get("NNODES", "1"))
+    if n_local == 1 and nnodes == 1:
+        return [{}]
+    node = int(os.environ.get("NODE_RANK", "0"))
+    common = dict(MASTER_ADDR=os.environ.get("MASTER_ADDR", "127.0.0.1"),
+                  MASTER_PORT=os.environ.get("MASTER_PORT", str(_free_port())),
+                  WORLD_SIZE=str(nnodes * n_local), LOCAL_WORLD_SIZE=str(n_local),
+                  NNODES=str(nnodes), NODE_RANK=str(node))
+    return [dict(common, RANK=str(node * n_local + i), LOCAL_RANK=str(i))
+            for i in range(n_local)]
 
 
 def launch(argv: Optional[List[str]] = None, config_dir: str = "./config"):
@@ -85,7 +148,8 @@ def launch(argv: Optional[List[str]] = None, config_dir: str = "./config"):
             ("generator", conf.generator_workers),
             ("generator_train", conf.generator_workers_train),
             ("generator_eval", conf.generator_workers_eval)) for i in range(n))
-    num_threads = max(1, torch.get_num_threads() // (n_generators + 1))
+    n_ranks = learner_ranks(conf) if belongs_to_worker("learner", 0) else 0
+    num_threads = max(1, torch.get_num_threads() // (n_generators + max(n_ranks, 1)))
 
     # SIGTERM must reap the worker pool: the default handler exits without
     # unwinding, so the finally-kill below never runs and the spawned
@@ -143,32 +207,39 @@ def launch(argv: Optional[List[str]] = None, config_dir: str = "./config"):
                 num_threads=num_threads,
             ))
 
-    # Learner.
-    learner_proc = None
-    if belongs_to_worker("learner", 0):
-        logger.info("Launching learner")
-        learner_proc = ctx.Process(target=_learner_entry, daemon=False,
-                                   args=(conf, str(artifact_dir), num_threads))
-        learner_proc.start()
-        subprocesses.append(learner_proc)
+    # Learner: one process per rank of this host.
+    def start_learners() -> List[mp.Process]:
+        procs = []
+        for env in rank_environments(n_ranks):
+            logger.info("Launching learner%s", f" rank {env['RANK']}" if env else "")
+            p = ctx.Process(target=_learner_entry, daemon=False,
+                            args=(conf, str(artifact_dir), num_threads, env))
+            p.start()
+            procs.append(p)
+        return procs
+
+    learners = start_learners() if n_ranks else []
+    subprocesses.extend(learners)
 
     try:
         while subprocesses:
-            # Learner self-recycle (max_rss_gb): relaunch it; it resumes
-            # from its own checkpoint while the generators keep running.
-            if (learner_proc is not None and not learner_proc.is_alive()
-                    and learner_proc.exitcode == RECYCLE_EXIT_CODE):
-                subprocesses.remove(learner_proc)
+            # Learner self-recycle (max_rss_gb): once every rank has asked,
+            # relaunch them all; they resume from the checkpoint while the
+            # generators keep running.
+            waiting = [p for p in learners if not p.is_alive()
+                       and p.exitcode == RECYCLE_EXIT_CODE]
+            if learners and len(waiting) == len(learners):
                 logger.info("Learner requested recycle; relaunching.")
-                learner_proc = ctx.Process(target=_learner_entry, daemon=False,
-                                           args=(conf, str(artifact_dir), num_threads))
-                learner_proc.start()
-                subprocesses.append(learner_proc)
-            check_subprocesses(subprocesses)
+                subprocesses = [p for p in subprocesses if p not in learners]
+                learners, waiting = start_learners(), []
+                subprocesses.extend(learners)
+            live = [p for p in subprocesses if p not in waiting]
+            check_subprocesses(live)  # raises on a failure, drops what finished
+            subprocesses = live + waiting
             # When the learner completes cleanly there is nothing left to
             # train; shut the generator pool down too (the reference hangs
             # here waiting on infinite generators).
-            if learner_proc is not None and learner_proc not in subprocesses:
+            if learners and not any(p in subprocesses for p in learners):
                 logger.info("Learner finished; shutting down generators.")
                 break
             time.sleep(1)

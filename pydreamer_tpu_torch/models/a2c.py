@@ -28,6 +28,7 @@ import torch
 import torch.nn as nn
 
 from .distributions import OneHotCategorical, normal_tanh, tanh_normal, trunc_normal
+from .functions import batch_var
 from .modules import MLP
 
 __all__ = ["ActorCritic", "Critic", "gae_advantage", "ACTOR_DISTS"]
@@ -112,7 +113,10 @@ class Critic(nn.Module):
 
 
 class ActorCritic(Critic):
-    """Actor, critic and frozen critic target."""
+    """Actor, critic and frozen critic target. ``batch_reduce``: as
+    ``decoders.MultiDecoder``'s, for ``policy_reward_std``."""
+
+    batch_reduce = None
 
     def __init__(self, in_dim: int, out_actions: int, hidden_dim: int = 400,
                  hidden_layers: int = 4, layer_norm: bool = True, gamma: float = 0.999,
@@ -165,7 +169,7 @@ class ActorCritic(Critic):
             policy_value=value0[0].mean().detach(),
             policy_value_im=value0.mean().detach(),
             policy_reward=reward1.mean().detach(),
-            policy_reward_std=reward1.std(unbiased=False).detach(),
+            policy_reward_std=batch_var(reward1, reduce=self.batch_reduce).sqrt().detach(),
         )
         tensors = dict(
             value=value.detach(),

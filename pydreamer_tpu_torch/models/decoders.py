@@ -210,7 +210,13 @@ class DenseCategoricalSupportDecoder(nn.Module):
 
 
 class MultiDecoder(nn.Module):
-    """Weighted multi-head reconstruction (image + vecobs + reward + terminal)."""
+    """Weighted multi-head reconstruction (image + vecobs + reward + terminal).
+
+    ``batch_reduce`` (``functions.BatchReduce``, set by a data-parallel
+    ``parallel.DistributedContext``) makes the per-bucket ``extra_metrics``
+    NaN-skipping means of the whole batch."""
+
+    batch_reduce = None
 
     def __init__(self, features_dim: int, image_decoder, image_size: int, image_channels: int,
                  cnn_depth: int, image_decoder_layers: int, image_decoder_min_prob: float,
@@ -299,7 +305,7 @@ class MultiDecoder(nn.Module):
             for name, loss, mask in parts:
                 mask = mask.float()
                 masked = loss.detach() * mask / mask  # nan off the mask
-                metrics[f"loss_{name}"] = nanmean(masked)
+                metrics[f"loss_{name}"] = nanmean(masked, self.batch_reduce)
                 tensors[f"loss_{name}"] = masked
         return loss_reconstr, metrics, tensors
 

@@ -17,7 +17,7 @@ import torch
 __all__ = [
     "flatten_batch", "unflatten_batch", "insert_dim", "expand_iwae",
     "logavgexp", "nanmean", "clip_rewards", "clip_rewards_np", "symlog", "symexp",
-    "global_norm",
+    "global_norm", "BatchReduce", "batch_mean", "batch_var",
 ]
 
 
@@ -61,10 +61,57 @@ def logavgexp(x: torch.Tensor, dim: int) -> torch.Tensor:
     return x.squeeze(dim)
 
 
-def nanmean(x: torch.Tensor) -> torch.Tensor:
-    """Mean ignoring NaNs (0 when every entry is NaN)."""
+class BatchReduce:
+    """Sums a metric's statistics over the ranks that split the batch.
+
+    The metrics that are not means over equal shards of the batch (a mean
+    that skips NaNs, a variance) need the sums, counts and moments of the
+    whole batch. ``parallel.DistributedContext`` gives each module that
+    computes one a ``BatchReduce`` over its ``data`` group and switches it on
+    for the train step's forward only (``active``), so an evaluation that one
+    rank runs alone reaches no collective.
+    """
+
+    def __init__(self, all_reduce_sum):
+        self.all_reduce_sum = all_reduce_sum
+        self.active = False
+
+
+def _on(reduce: BatchReduce | None) -> bool:
+    return reduce is not None and reduce.active
+
+
+def nanmean(x: torch.Tensor, reduce: BatchReduce | None = None) -> torch.Tensor:
+    """Mean ignoring NaNs (0 when every entry is NaN); over every rank's
+    shard when ``reduce`` is on."""
     mask = ~torch.isnan(x)
-    return torch.nansum(x) / mask.sum().clamp(min=1)
+    if not _on(reduce):
+        return torch.nansum(x) / mask.sum().clamp(min=1)
+    total, count = reduce.all_reduce_sum(torch.stack([torch.nansum(x), mask.sum().to(x.dtype)]))
+    return total / count.clamp(min=1)
+
+
+def batch_mean(x: torch.Tensor, dim: int | None = None, reduce: BatchReduce | None = None,
+               keepdim: bool = False) -> torch.Tensor:
+    """``x.mean(dim)`` (every axis when ``dim`` is None), over every rank's
+    shard when ``reduce`` is on."""
+    dims = tuple(range(x.dim())) if dim is None else (dim,)
+    if not _on(reduce):
+        return x.mean(dims, keepdim=keepdim)
+    total = x.sum(dims, keepdim=keepdim)
+    count = math.prod(x.shape[d] for d in dims)
+    both = reduce.all_reduce_sum(torch.cat([total.reshape(-1), total.new_full((1,), count)]))
+    return (both[:-1] / both[-1]).reshape(total.shape)
+
+
+def batch_var(x: torch.Tensor, dim: int | None = None,
+              reduce: BatchReduce | None = None) -> torch.Tensor:
+    """Population variance (``correction=0``, ``jnp.var``) over ``dim`` or all
+    axes, two-pass, over every rank's shard when ``reduce`` is on."""
+    if not _on(reduce):
+        return x.var(dim, correction=0)
+    mean = batch_mean(x, dim, reduce, keepdim=True)
+    return batch_mean((x - mean).square(), dim, reduce)
 
 
 def symlog(x: torch.Tensor) -> torch.Tensor:

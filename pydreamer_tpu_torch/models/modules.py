@@ -30,7 +30,15 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
 
 class Dense(nn.Linear):
-    """Linear layer with Xavier-uniform weight / zero bias, cast per op."""
+    """Linear layer with Xavier-uniform weight / zero bias, cast per op.
+
+    Under a ``model`` axis (``parallel.DistributedContext``) ``weight`` holds
+    the rank's rows (output features) and ``tensor_parallel`` runs the
+    column-parallel product; the bias stays whole, as JAX keeps its 1-D
+    leaves replicated.
+    """
+
+    tensor_parallel = None
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  dtype: torch.dtype = torch.float32):
@@ -43,6 +51,8 @@ class Dense(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         b = None if self.bias is None else self.bias.to(dt)
+        if self.tensor_parallel is not None:
+            return self.tensor_parallel.linear(x.to(dt), self.weight.to(dt), b)
         return F.linear(x.to(dt), self.weight.to(dt), b)
 
 

@@ -23,6 +23,34 @@ rollout. The names, in the order ``Dreamer`` asks for them, then the baselines':
 :class:`GeneratorNoise` draws them from a ``torch.Generator`` on the device;
 :class:`ReplayNoise` feeds arrays computed elsewhere (the parity tests replay
 the noise JAX draws from its keys).
+
+:class:`DataShardNoise` is the draw of one rank of a ``data`` axis
+(``parallel/``). JAX draws every array at its global shape from one key and
+shards it, so a mesh step draws what a single-device step draws. The wrapper
+does the same over any source: it asks the inner source for the global shape
+and returns the rows of its data index. The batch axis of each name, with
+B, M the rank's sizes and n the data ranks:
+
+========================== ==================== =========================
+name                       local shape          rank d's rows of the draw
+========================== ==================== =========================
+``posterior_z``            (T, B*I, S, K)       axis 1, [d*B*I, (d+1)*B*I)
+``pred_z``                 (T, B, I, S, K)      axis 1, [d*B, (d+1)*B)
+``embed_z``,
+``embed_pred_z``           (T, B, I, S)         axis 1, [d*B, (d+1)*B)
+``action``                 (1, B, A)            axis 1, [d*B, (d+1)*B)
+``log_action``, ``log_z``  (B, ...) at each t   axis 0, [d*B, (d+1)*B)
+``dream_action``,
+``dream_z``                (M, ...) at each t   M = T*B*I flattened t-major:
+                                                the global draw as
+                                                (T, n*B*I, ...), axis 1
+                                                [d*B*I, (d+1)*B*I), so not
+                                                one block of the global M
+========================== ==================== =========================
+
+A ``GeneratorNoise`` seeded alike on every rank then gives exactly the
+single-process noise, and ranks of one ``model`` group draw the same rows;
+a ``ReplayNoise`` of JAX's global arrays gives exactly JAX's mesh noise.
 """
 
 from __future__ import annotations
@@ -34,7 +62,7 @@ import torch
 
 from .distributions import gumbel_from_uniform
 
-__all__ = ["GeneratorNoise", "ReplayNoise", "NOISE_KINDS"]
+__all__ = ["GeneratorNoise", "ReplayNoise", "DataShardNoise", "NOISE_KINDS"]
 
 NOISE_KINDS = ("gumbel", "normal", "uniform")
 
@@ -76,3 +104,38 @@ class ReplayNoise:
         if tuple(x.shape) != tuple(shape):
             raise ValueError(f"replayed {name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
         return x
+
+
+# The batch axis of each draw's local shape (table above); the dream's rows
+# are t-major blocks of the rank's TBTT streams.
+_BATCH_AXIS = {"posterior_z": 1, "pred_z": 1, "embed_z": 1, "embed_pred_z": 1, "action": 1,
+               "log_action": 0, "log_z": 0}
+_DREAM = ("dream_action", "dream_z")
+
+
+class DataShardNoise:
+    """Rank ``index`` of ``count`` data ranks: the rows of the global draw of
+    ``inner`` that belong to it (the module docstring's table). ``streams``
+    is the rank's TBTT streams, B*I, the rows of each dream step."""
+
+    def __init__(self, inner, index: int, count: int, streams: int):
+        self.inner, self.index, self.count, self.streams = inner, index, count, streams
+
+    def draw(self, name: str, shape: Sequence[int], kind: str,
+             t: Optional[int] = None) -> torch.Tensor:
+        shape = tuple(shape)
+        if name in _DREAM:
+            steps, rest = shape[0] // self.streams, shape[1:]
+            if steps * self.streams != shape[0]:
+                raise ValueError(f"{name}: {shape[0]} rows are not whole steps of "
+                                 f"{self.streams} streams")
+            full = self.inner.draw(name, (self.count * shape[0],) + rest, kind, t)
+            full = full.reshape((steps, self.count * self.streams) + rest)
+            return full.narrow(1, self.index * self.streams, self.streams).reshape(shape)
+        try:
+            axis = _BATCH_AXIS[name]
+        except KeyError:
+            raise KeyError(f"no batch axis known for noise {name!r}") from None
+        glob = shape[:axis] + (self.count * shape[axis],) + shape[axis + 1:]
+        full = self.inner.draw(name, glob, kind, t)
+        return full.narrow(axis, self.index * shape[axis], shape[axis])

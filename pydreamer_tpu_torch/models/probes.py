@@ -20,13 +20,16 @@ import torch
 import torch.nn as nn
 
 from .decoders import CatImageDecoder, DenseNormalDecoder
-from .functions import insert_dim, nanmean
+from .functions import batch_var, insert_dim, nanmean
 
 __all__ = ["MapProbeHead", "GoalsProbe", "MapGoalsProbe", "NoProbeHead", "make_probe"]
 
 
 class MapProbeHead(CatImageDecoder):
-    """Predict the global map from the features and the 4-dim ``map_coord``."""
+    """Predict the global map from the features and the 4-dim ``map_coord``.
+    ``batch_reduce``: as ``decoders.MultiDecoder``'s, for the accuracies."""
+
+    batch_reduce = None
 
     def __init__(self, map_state_dim: int, conf, dtype=torch.float32):
         if conf.map_decoder != "dense":
@@ -43,10 +46,10 @@ class MapProbeHead(CatImageDecoder):
         map_pred = map_pred.detach()
         acc_map = self.accuracy(map_pred, obs["map"])
         tensors = dict(map_rec=map_pred, loss_map=loss.detach(), acc_map=acc_map)
-        metrics = dict(loss_map=loss.mean().detach(), acc_map=nanmean(acc_map))
+        metrics = dict(loss_map=loss.mean().detach(), acc_map=nanmean(acc_map, self.batch_reduce))
         if "map_seen_mask" in obs:
             metrics["acc_map_seen"] = nanmean(
-                self.accuracy(map_pred, obs["map"], obs["map_seen_mask"]))
+                self.accuracy(map_pred, obs["map"], obs["map_seen_mask"]), self.batch_reduce)
         return loss.mean(), metrics, tensors
 
     @staticmethod
@@ -62,7 +65,11 @@ class MapProbeHead(CatImageDecoder):
 
 
 class GoalsProbe(nn.Module):
-    """Predict goal directions; MSE metrics bucketed by goal visibility age."""
+    """Predict goal directions; MSE metrics bucketed by goal visibility age.
+    ``batch_reduce``: as ``decoders.MultiDecoder``'s, for ``var_goals`` and
+    the buckets."""
+
+    batch_reduce = None
 
     LOG_RANGES = (-1, 0, 5, 10, 50, 200, 1000)
     NAMES = ("goal_direction", "goals_direction")
@@ -90,7 +97,7 @@ class GoalsProbe(nn.Module):
         mse_per_coord = (goals - pred).square()                          # (T,B,2G)
         mse_per_goal = mse_per_coord.reshape(mse_per_coord.shape[:-1] + (-1, 2)).sum(-1)
         metrics["mse_goals"] = mse_per_goal.mean(-1).mean()
-        var_per_coord = goals.reshape(-1, goals.shape[-1]).var(0, correction=0)
+        var_per_coord = batch_var(goals.reshape(-1, goals.shape[-1]), 0, self.batch_reduce)
         metrics["var_goals"] = var_per_coord.reshape(-1, 2).sum(-1).mean()
 
         visage = obs.get("goals_visage")
@@ -98,7 +105,8 @@ class GoalsProbe(nn.Module):
             for i in range(1, len(self.LOG_RANGES)):
                 vmin, vmax = self.LOG_RANGES[i - 1] + 1, self.LOG_RANGES[i]
                 mask = ((vmin <= visage) & (visage <= vmax)).float()
-                metrics[f"mse_goal_age{vmax}"] = nanmean(mse_per_goal * mask / mask)
+                metrics[f"mse_goal_age{vmax}"] = nanmean(mse_per_goal * mask / mask,
+                                                         self.batch_reduce)
         return loss_total, metrics, tensors
 
 

@@ -28,7 +28,13 @@ __all__ = ["GRUCell", "NormGRUCell", "NormGRUCellLateReset",
 
 
 class _GateWeights(nn.Module):
-    """Fused ih (Xavier) and hh (orthogonal) gate kernels, stored (in, 3H)."""
+    """Fused ih (Xavier) and hh (orthogonal) gate kernels, stored (in, 3H).
+
+    Under a ``model`` axis (``parallel.DistributedContext``) each kernel holds
+    the rank's columns and ``tensor_parallel`` gathers them before the cell
+    runs, so every cell, K1 included, sees whole weights."""
+
+    tensor_parallel = None
 
     def __init__(self, input_size: int, hidden_size: int, use_bias: bool,
                  dtype: torch.dtype):
@@ -43,6 +49,13 @@ class _GateWeights(nn.Module):
             self.bias_ih = nn.Parameter(torch.zeros(3 * hidden_size))
             self.bias_hh = nn.Parameter(torch.zeros(3 * hidden_size))
 
+    def gate_weights(self, dt: torch.dtype):
+        """(W_ih, W_hh) in ``dt``, whole."""
+        w_ih, w_hh = self.weight_ih.to(dt), self.weight_hh.to(dt)
+        if self.tensor_parallel is not None:
+            w_ih, w_hh = (self.tensor_parallel.gather_columns(w) for w in (w_ih, w_hh))
+        return w_ih, w_hh
+
 
 class GRUCell(_GateWeights):
     """Plain GRU cell (same math as torch.nn.GRUCell)."""
@@ -52,8 +65,9 @@ class GRUCell(_GateWeights):
 
     def forward(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        gates_i = x.to(dt) @ self.weight_ih.to(dt) + self.bias_ih.to(dt)
-        gates_h = h.to(dt) @ self.weight_hh.to(dt) + self.bias_hh.to(dt)
+        w_ih, w_hh = self.gate_weights(dt)
+        gates_i = x.to(dt) @ w_ih + self.bias_ih.to(dt)
+        gates_h = h.to(dt) @ w_hh + self.bias_hh.to(dt)
         ri, ui, ni = gates_i.chunk(3, -1)
         rh, uh, nh = gates_h.chunk(3, -1)
         reset = torch.sigmoid(ri + rh)
@@ -83,7 +97,7 @@ class NormGRUCell(_GateWeights):
     def forward(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         H = self.hidden_size
-        w_ih, w_hh = self.weight_ih.to(dt), self.weight_hh.to(dt)
+        w_ih, w_hh = self.gate_weights(dt)
         x, h = x.to(dt), h.to(dt)
         r, u, _ = (x @ w_ih + h @ w_hh).chunk(3, -1)
         ln = lambda m, v: layer_norm(v, m.weight, m.bias, dt)
@@ -104,7 +118,8 @@ class NormGRUCellLateReset(_GateWeights):
 
     def forward(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        gates = x.to(dt) @ self.weight_ih.to(dt) + h.to(dt) @ self.weight_hh.to(dt)
+        w_ih, w_hh = self.gate_weights(dt)
+        gates = x.to(dt) @ w_ih + h.to(dt) @ w_hh
         gates = layer_norm(gates, self.lnorm.weight, self.lnorm.bias, dt)
         r, u, n = gates.chunk(3, -1)
         reset = torch.sigmoid(r)
@@ -130,8 +145,7 @@ class NormGRUCellLateResetFused(_GateWeights):
 
     def forward(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        out = gru_dv2(x.to(dt).contiguous(), h.to(dt).contiguous(),
-                      self.weight_ih.to(dt), self.weight_hh.to(dt),
+        out = gru_dv2(x.to(dt).contiguous(), h.to(dt).contiguous(), *self.gate_weights(dt),
                       self.ln_scale, self.ln_bias)
         return out.to(dt)
 

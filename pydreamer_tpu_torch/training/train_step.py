@@ -25,6 +25,17 @@ Counterpart of ``pydreamer_tpu/training/train_step.py:53-162``:
   gradients, which leaves both the update and ``grad_norm`` as they are here.
 
 Master parameters and optimizer state are float32.
+
+Under a mesh (``ctx``, a ``parallel.DistributedContext``; JAX's step is
+jitted over one, train_step.py:18-20) the model is placed on it before the
+optimizer is built, so AdamW's moments are born sharded. The noise, given or
+default, is the global source, and each rank draws its rows of it. After
+``backward()`` the gradients are averaged over the ranks before the norms and
+the clip; a sharded parameter's squared norm is summed over 'model', so
+``grad_norm*`` and each group's clip are global; the metrics are averaged
+over 'data'. ``model.training_step`` is called directly, so the step uses
+plain collectives and not ``DistributedDataParallel``, whose hooks would
+never fire.
 """
 
 from __future__ import annotations
@@ -80,12 +91,15 @@ class TrainStep:
     """Owns the optimizer of a ``Dreamer`` or ``WorldModelProbe`` and runs its
     gradient step."""
 
-    def __init__(self, model, conf, device: str | torch.device = "cuda"):
+    def __init__(self, model, conf, device: str | torch.device = "cuda", ctx=None):
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, TrainStep on {self.device}")
         self.model = model
         self.conf = conf
+        self.ctx = ctx
+        if ctx is not None:
+            ctx.place_model(model)
         # The target copies run only where the model has the targets (JAX:
         # ``if "critic_target" in params``); a baseline has neither.
         self.target_interval = conf.get("target_interval", 0) if hasattr(model, "ac") else 0
@@ -112,29 +126,48 @@ class TrainStep:
         metrics are 0-d tensors on the device (no host sync here)."""
         if noise is None:
             noise = GeneratorNoise(self.device, seed=seed * 1_000_003 + step)
+        ctx = self.ctx
+        if ctx is not None:
+            streams = obs["action"].shape[1] * self.conf.iwae_samples
+            noise = ctx.noise(noise, streams)
         model = self.model
         if self.target_interval and step % self.target_interval == 0:
             model.ac.update_critic_target()
         if self.target_interval_aux and step % self.target_interval_aux == 0:
             model.wm.ac_aux.update_critic_target()
 
-        losses, out_state, metrics, tensors, dream_tensors = model.training_step(
-            obs, in_state, noise, do_image_pred=do_image_pred, do_dream_tensors=do_dream_tensors)
+        if ctx is not None:
+            ctx.batch_reduce.active = True
+        try:
+            losses, out_state, metrics, tensors, dream_tensors = model.training_step(
+                obs, in_state, noise, do_image_pred=do_image_pred,
+                do_dream_tensors=do_dream_tensors)
+        finally:
+            if ctx is not None:
+                ctx.batch_reduce.active = False
         self.optimizer.zero_grad(set_to_none=True)
         sum(losses.values()).backward()
 
         metrics = dict(metrics)
-        grads, norms = {}, {}
+        grads = {}
         for part, params in self.parts.items():
             for p in params:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
             grads[part] = [p.grad for p in params]
-            norms[part] = metrics[METRICS[part]] = global_norm(grads[part])
+        if ctx is None:
+            norms = {part: global_norm(g) for part, g in grads.items()}
+        else:
+            ctx.reduce_gradients([p for params in self.parts.values() for p in params])
+            norms = ctx.grad_norms(grads, self.parts)
+        for part, norm in norms.items():
+            metrics[METRICS[part]] = norm
         for name, parts in self.groups.items():
             norm = torch.stack([norms[part] for part in parts]).square().sum().sqrt()
             clip_by_global_norm_([g for part in parts for g in grads[part]], norm,
                                  self.clips[name])
         self.optimizer.step()
         metrics.update({k: v.detach() for k, v in losses.items()})
+        if ctx is not None:
+            metrics = ctx.reduce_metrics(metrics)
         return out_state, metrics, tensors, dream_tensors

@@ -6,8 +6,35 @@ metric windows of means and maxima, periodic npz batch dumps, periodic
 checkpoints (the policy channel, see ``tracking.py``), the eval protocol,
 and a stop at ``n_steps`` / ``n_env_steps``.
 
-The single-process path of the JAX loop; its multi-host branches are not
-ported. Differences that follow from PyTorch:
+Its multi-host branches run over ``torch.distributed`` with one process
+(rank) per device, which ``launch.py`` or ``torchrun`` start with torch's
+environment (``parallel/multihost.py``). When a group is active:
+
+  * the rank trains on ``cuda:LOCAL_RANK`` unless the caller names a device,
+    inside a ``parallel.DistributedContext`` (JAX trainer.py:144-149) whose
+    ``mesh_data`` x ``mesh_model`` mesh covers the world; ``batch_size`` must
+    divide over the data ranks. Without a group a mesh larger than one rank
+    raises instead of training on one device;
+  * each rank streams ``batch_size / n_data`` rows (``local_b``) with its
+    data index in the seed (``* 7919``, :195-206) in strict round-robin
+    order, each stream with its own TBTT state of ``local_b * I`` rows. The
+    ranks of one ``model`` group step on the batches their first rank reads
+    (``share_batch``);
+  * the replay is per host (its generators write it): the prefill target is
+    ``generator_prefill_steps // hosts`` and each host's count enters the
+    global sum once (through its local rank 0), so the prefill and env-step
+    stops are unanimous (:110-134, :301-309);
+  * rank 0 alone writes the architecture text, the metric rows, the
+    checkpoints (gathered over 'model' first, so the format is the
+    single-process one) and the npz dumps (gathered over 'data' into the
+    global batch), and runs the eval on a whole copy of the weights;
+  * a resume reads the whole checkpoint on every rank, which keeps its
+    blocks;
+  * the RSS self-recycle is decided by all ranks together (an all-reduce
+    MAX). JAX decides per process and then enters a collective that the
+    other processes never reach.
+
+Differences that follow from PyTorch:
 
   * ``run`` takes ``device`` (default ``"cuda"``, raising without a card);
     ``conf.platform == "cpu"`` (the ``debug`` preset) asks for the CPU;
@@ -39,6 +66,10 @@ from ..device import resolve_device
 from ..models.baselines import WorldModelProbe
 from ..models.dreamer import Dreamer
 from ..models.noise import GeneratorNoise
+from ..parallel import DistributedContext
+from ..parallel.multihost import (global_any, global_sum, is_main_process, local_batch_size,
+                                  local_rank, local_world_size, maybe_initialize_distributed,
+                                  world_size)
 from ..tools import Timer, configure_logging, logger, print_once, timers_summary
 from ..tracking import Run, init_run
 from .train_step import TrainStep
@@ -69,8 +100,24 @@ def run(conf: Conf, run_dir: Optional[str] = None, max_steps: Optional[int] = No
     configure_logging(prefix="[TRAIN]")
     if conf.get("platform") == "cpu":
         device = "cpu"  # the debug preset runs the learner on the CPU
+    device = torch.device(device)
+    distributed = maybe_initialize_distributed(device.type)
+    if distributed and device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", local_rank())
     device = resolve_device(device)
     logger.info("Learner device: %s", device)
+    ctx, local_b = None, conf.batch_size
+    if distributed:
+        ctx = DistributedContext(conf, device)
+        local_b = local_batch_size(conf.batch_size, ctx.n_data)
+    elif max(conf.get("mesh_data", 0), conf.get("mesh_model", 1)) > 1:
+        raise ValueError(
+            f"mesh {conf.get('mesh_data', 0)}x{conf.get('mesh_model', 1)} but no process group: "
+            "start one rank per device (the launcher, or torchrun with torch's environment)")
+    elif device.type == "cuda" and torch.cuda.device_count() > 1:
+        logger.warning("%d cards visible, training on %s only: start one rank per card to use "
+                       "them all", torch.cuda.device_count(), device)
+    main = is_main_process()
     run_ = init_run(run_dir=run_dir)
     artifact_dir = run_.dir
     timers_summary(reset=True)
@@ -100,67 +147,91 @@ def run(conf: Conf, run_dir: Optional[str] = None, max_steps: Optional[int] = No
     # before the prefill wait so that the wait logs at the resumed step.
     torch.manual_seed(conf.get("seed", 0))
     model = make_model(conf, device)
-    trainstep = TrainStep(model, conf, device=device)
-    run_.log_text(_describe_params(model), "architecture.txt")
+    if main:
+        run_.log_text(_describe_params(model), "architecture.txt")
+    trainstep = TrainStep(model, conf, device=device, ctx=ctx)
     steps = 0
     ckpt = run_.load_checkpoint(device)
     if ckpt is not None:
         state_dict, steps = ckpt
+        if ctx is not None:  # every rank reads the whole file and keeps its blocks
+            state_dict = ctx.place_like(state_dict, trainstep.optimizer)
         model.load_state_dict(state_dict["model"])
         trainstep.optimizer.load_state_dict(state_dict["optimizer"])
         logger.info("Loaded model from checkpoint epoch %d", steps)
 
-    # Wait for prefill (reference: train.py:62-82).
+    # Wait for prefill (reference: train.py:62-82). Each host waits for its
+    # own replay; the stop is decided on the sum over hosts, so all agree.
     if online_data:
+        prefill_target = conf.generator_prefill_steps // _hosts()
         last_logged_steps = -1
         while True:
             _, steps_now, _ = make_repository(input_dirs).count_steps()
             # Log the counter only when it changes: a long prefill polls
             # every 10 s.
-            if steps_now != last_logged_steps:
+            if main and steps_now != last_logged_steps:
                 run_.log_metrics(
                     {"train/data_steps": steps_now,
                      "train/data_env_steps": steps_now * conf.env_action_repeat},
                     step=steps)
                 last_logged_steps = steps_now
-            if steps_now < conf.generator_prefill_steps:
-                logger.debug("Waiting for prefill: %d/%d steps...",
-                             steps_now, conf.generator_prefill_steps)
+            if steps_now < prefill_target:
+                logger.debug("Waiting for prefill: %d/%d steps...", steps_now, prefill_target)
                 time.sleep(10)
             else:
-                logger.info("Done prefilling: %d/%d steps.",
-                            steps_now, conf.generator_prefill_steps)
+                logger.info("Done prefilling: %d/%d steps.", steps_now, prefill_target)
                 break
-        if steps_now * conf.env_action_repeat >= conf.n_env_steps:
+        if _replay_steps(steps_now) * conf.env_action_repeat >= conf.n_env_steps:
             logger.info("Finished %d env steps.", conf.n_env_steps)
             return
 
     preprocess = Preprocessor.from_conf(conf)
 
-    # Input pipeline: N worker threads, each an independent TBTT stream.
+    # Input pipeline: N worker threads, each an independent TBTT stream of
+    # local_b rows; under a mesh the data index offsets the seed and the
+    # streams take turns in a fixed order (JAX trainer.py:191-210). Only the
+    # first rank of a model group reads; the others receive its batches.
+    data_index = 0 if ctx is None else ctx.mesh.data_index
+
     def make_stream(worker_id: int):
         data = SequentialDataset(
-            make_repository(input_dirs), conf.batch_length, conf.batch_size,
+            make_repository(input_dirs), conf.batch_length, local_b,
             skip_first=True,
             reload_interval=120 if online_data else 0,
             buffer_size=conf.buffer_size if online_data else conf.buffer_size_offline,
             reset_interval=conf.reset_interval,
             allow_mid_reset=conf.allow_mid_reset,
-            seed=conf.get("seed", 0) * 1000 + worker_id)
+            seed=conf.get("seed", 0) * 1000 + worker_id + data_index * 7919)
         return preprocess(iter(data))
 
-    loader = ParallelLoader(make_stream, num_workers=conf.data_workers)
-    data_iter = prefetch_iterator(iter(loader), device, size=2,
-                                  transform=_make_input_transform())
+    loader = data_iter = None
+    if ctx is None or ctx.mesh.model_index == 0:
+        loader = ParallelLoader(make_stream, num_workers=conf.data_workers,
+                                strict_order=ctx is not None)
+        data_iter = prefetch_iterator(iter(loader), device, size=2,
+                                      transform=_make_input_transform())
     profiler = _ProfileWindow(run_, device, conf.get("enable_profiler", False))
     try:
         return _train_loop(conf, model, trainstep, data_iter, run_, steps, max_steps,
                            online_data, input_dirs, test_dirs, eval_dirs, preprocess,
-                           profiler)
+                           profiler, ctx, local_b)
     finally:
         profiler.close()
-        loader.close()
-        data_iter.close()
+        if loader is not None:
+            loader.close()
+            data_iter.close()
+
+
+def _hosts() -> int:
+    """Hosts of the learner's world: each holds one replay, which its own
+    generators write and all its ranks read."""
+    return max(world_size() // local_world_size(), 1)
+
+
+def _replay_steps(steps_local: int) -> int:
+    """The replay steps of all hosts: each host's count once, through its
+    local rank 0. A collective under a process group."""
+    return global_sum(steps_local if local_rank() == 0 else 0)
 
 
 class _ProfileWindow:
@@ -196,8 +267,10 @@ class _ProfileWindow:
 
 
 def _train_loop(conf, model, trainstep, data_iter, run_, steps, max_steps,
-                online_data, input_dirs, test_dirs, eval_dirs, preprocess, profiler):
+                online_data, input_dirs, test_dirs, eval_dirs, preprocess, profiler,
+                ctx, local_b):
     states: Dict[int, tuple] = {}  # TBTT state per data worker (train.py:168-178)
+    main = is_main_process()
     seed = conf.get("seed", 0) + 1
     metrics_agg = defaultdict(list)
     metrics_max = defaultdict(list)
@@ -206,8 +279,14 @@ def _train_loop(conf, model, trainstep, data_iter, run_, steps, max_steps,
     prev_metrics = None  # one step behind: drain step i-1 while step i runs
 
     def checkpoint():
-        run_.save_checkpoint({"model": model.state_dict(),
-                              "optimizer": trainstep.optimizer.state_dict()}, steps)
+        """Rank 0 saves the whole state; under 'model' its group gathers it
+        first (a collective: every rank calls this at the same step)."""
+        if ctx is None:
+            state = {"model": model.state_dict(), "optimizer": trainstep.optimizer.state_dict()}
+        else:
+            state = ctx.fetch(model, trainstep.optimizer)
+        if main:
+            run_.save_checkpoint(state, steps)
 
     n_steps = min(conf.n_steps, max_steps) if max_steps else conf.n_steps
 
@@ -221,7 +300,8 @@ def _train_loop(conf, model, trainstep, data_iter, run_, steps, max_steps,
                 steps % conf.log_interval >= int(conf.log_interval * 0.9))
 
             with Timer("data"):
-                batch, wid, data_stats = next(data_iter)
+                item = next(data_iter) if data_iter is not None else None
+                batch, wid, data_stats = item if ctx is None else ctx.share_batch(item)
                 # Fail fast with a config-level message instead of a shape
                 # error inside the model.
                 if "action" in batch and batch["action"].shape[-1] != conf.action_dim:
@@ -234,7 +314,7 @@ def _train_loop(conf, model, trainstep, data_iter, run_, steps, max_steps,
             with Timer("step"):
                 state = states.get(wid)
                 if state is None:
-                    state = model.init_state(conf.batch_size * conf.iwae_samples)
+                    state = model.init_state(local_b * conf.iwae_samples)
                 new_state, metrics, tensors, dream_tensors = trainstep(
                     batch, state, steps, seed=seed,
                     do_image_pred=will_image_pred, do_dream_tensors=will_log_batch)
@@ -252,15 +332,23 @@ def _train_loop(conf, model, trainstep, data_iter, run_, steps, max_steps,
                         metrics_agg[k].append(v)
                 prev_metrics = _MetricsFetch(metrics)
 
-                if will_log_batch:
-                    log_batch_npz(run_, batch, tensors, f"{steps:07}.npz", subdir="d2_wm_closed")
-                if dream_tensors:
-                    log_batch_npz(run_, batch, dream_tensors, f"{steps:07}.npz",
-                                  subdir="d2_wm_dream")
+                # The dumps hold the global batch: under 'data' the ranks of
+                # rank 0's data group gather it (JAX's fetch_all, :286-296).
+                dumps = [("d2_wm_closed", tensors)] if will_log_batch else []
+                dumps += [("d2_wm_dream", dream_tensors)] if dream_tensors else []
+                for subdir, tens in dumps:
+                    if ctx is not None and ctx.mesh.model_index != 0:
+                        continue
+                    data = _host_tensors({**batch, **tens})
+                    if ctx is not None:
+                        data = ctx.gather_batch(data)
+                    if main:
+                        log_batch_npz(run_, data, {}, f"{steps:07}.npz", subdir=subdir)
 
                 # Buffer size recount + env-step stop (train.py:225-231).
                 if online_data and steps % conf.logbatch_interval == 0:
-                    _, steps_now, _ = make_repository(input_dirs).count_steps()
+                    _, steps_local, _ = make_repository(input_dirs).count_steps()
+                    steps_now = _replay_steps(steps_local)
                     metrics_agg["data_steps"].append(steps_now)
                     metrics_agg["data_env_steps"].append(steps_now * conf.env_action_repeat)
                     if steps_now * conf.env_action_repeat >= conf.n_env_steps:
@@ -283,7 +371,7 @@ def _train_loop(conf, model, trainstep, data_iter, run_, steps, max_steps,
                         out.get("train/loss_critic", 0),
                         out.get("train/policy_value", 0),
                         out.get("train/policy_entropy", 0), out["train/fps"])
-                    if steps > conf.log_interval:
+                    if main and steps > conf.log_interval:
                         # the first window skews the axes (reference: train.py:255)
                         run_.log_metrics(out, step=steps)
                     metrics_agg = defaultdict(list)
@@ -300,25 +388,37 @@ def _train_loop(conf, model, trainstep, data_iter, run_, steps, max_steps,
 
                 # Self-recycle when host RSS crosses max_rss_gb: checkpoint and
                 # return so a launcher restarts a fresh learner that resumes.
+                # One rank's excess recycles every rank (an all-reduce MAX).
                 if conf.get("max_rss_gb", 0) and steps % conf.log_interval == 0:
                     import resource
                     rss_gb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1048576
-                    if rss_gb > conf.max_rss_gb:
+                    if global_any(rss_gb > conf.max_rss_gb):
                         logger.warning(
-                            "RSS %.1f GB > max_rss_gb %.1f: checkpointing "
+                            "RSS %.1f GB (this rank) vs max_rss_gb %.1f: checkpointing "
                             "and requesting learner recycle.", rss_gb, conf.max_rss_gb)
                         checkpoint()
                         return "recycle"
 
             with Timer("eval"):
                 if conf.eval_interval and steps % conf.eval_interval == 0:
-                    missing = [d for d in (test_dirs, eval_dirs)
-                               if make_repository(d).count_steps()[0] == 0]
-                    if missing:
-                        # Benign while the eval generators have written nothing yet.
-                        logger.warning("Evaluation skipped: no episodes in %s", missing)
-                    else:
-                        _run_eval(conf, model, preprocess, test_dirs, eval_dirs, run_, steps)
+                    # Rank 0 evaluates alone (JAX :371-383), on a whole copy of
+                    # the weights under 'model' (its group gathers them).
+                    eval_model = model
+                    if ctx is not None and ctx.n_model > 1:
+                        whole = ctx.fetch(model)
+                        if main:
+                            eval_model = make_model(conf, model.device)
+                            eval_model.load_state_dict(whole["model"])
+                    if main:
+                        missing = [d for d in (test_dirs, eval_dirs)
+                                   if make_repository(d).count_steps()[0] == 0]
+                        if missing:
+                            # Benign while the eval generators have written nothing yet.
+                            logger.warning("Evaluation skipped: no episodes in %s", missing)
+                        else:
+                            _run_eval(conf, eval_model, preprocess, test_dirs, eval_dirs, run_,
+                                      steps)
+                    del eval_model
 
 
 class _MetricsFetch:
@@ -487,6 +587,11 @@ def _aggregate_metrics(metrics: Dict[str, float], metrics_agg, metrics_max):
             metrics_agg[k].append(v)
         if k.startswith("grad_norm") and np.isfinite(v):
             metrics_max[k].append(v)
+
+
+def _host_tensors(data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Device tensors on the host, floats as float32 (what the npz dump keeps)."""
+    return {k: torch.from_numpy(_to_numpy(v)) for k, v in data.items()}
 
 
 def log_batch_npz(run_: Run, batch, tensors, filename: str, subdir: str):
