@@ -119,6 +119,35 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
    ranks' ms per step are printed beside phase 4's: two ranks share one card
    and one host, so they are no multi-GPU number.
 
+15. Learning on the card. 15a: K1 at the shapes no earlier phase launched,
+   against its plain version and timed as in 2: ``f32`` at each canary's
+   posterior (M=B), dream (M=T*B) and acting (M=1) rows (H=32 and 64), and
+   ``skinny`` M=32 and ``wide`` M=1536 at the ``gridworld`` preset's In=H=256
+   in bf16. 15b: the four learning canaries of ``tests/test_learning.py``
+   (``pydreamer_tpu_torch/scripts/canaries.py``) on the card with
+   ``gru_type: gru_layernorm_dv2``, each held to the JAX test's own gate
+   (bandit: after > 6 and after > before + 2; GridWorld world model:
+   ``loss_model`` at step 60 under half of step 5's; pixel policy: the rolling
+   80-episode gate clears by step 4000; point: after > before + 4 and after >
+   12), counts set to 0 just before and read just after each: T posterior and
+   H dream launches a train step and one a policy call, all ``f32``. 15c: ``python
+   -m pydreamer_tpu_torch.launch --configs defaults gridworld --gru_type
+   gru_layernorm_dv2`` (deter 256, T=48, B=32, bf16, ``Grid-8x64``, one CPU
+   generator reloading the checkpoint every 15 s) for 120 steps under
+   ``timeout`` in a session of its own, started before 15a and running beside
+   15a and 15b (its own processes; its log goes to a file): exit 0, no process
+   left,
+   ``loss_model`` at the last log step under half its first logged value, the
+   generator's ``agent/`` rows both before and after its first checkpoint
+   load, the learner's K1 line (48 ``skinny`` [M=32] + 10 ``wide`` [M=1536] a
+   step plus the log step's 47, none ``generic``). Then the run tools on its
+   directory, as ``python -m pydreamer_tpu_torch.scripts.<tool>``:
+   ``export_metrics`` (a CSV whose first column is ``_step``), ``plot_curves``
+   (a PNG) where matplotlib is installed and ``make_gif`` (a GIF of the run's
+   ``d2_wm_dream`` dump) where PIL is; what a tool would read is kept in
+   ``chiprun_out/live_run/`` beside what they wrote. ``--learning-only`` runs
+   phases 1 and 15 alone.
+
 Prints one JSON line of per-kernel numbers (``launches``: the count on the
 path that runs the shape, ``launches_per_step``: per train step or acting
 call), then the nvidia-smi line, then
@@ -127,7 +156,8 @@ as the last line ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/learner_metrics.jsonl`` (phase 11's metrics),
 ``chiprun_out/launch_log.txt`` and ``chiprun_out/launch_metrics.jsonl``
 (phase 12's launcher run), ``chiprun_out/probe_phase.json`` (phase 13),
-``chiprun_out/phase14_*_rank*.json`` (phase 14's ranks);
+``chiprun_out/phase14_*_rank*.json`` (phase 14's ranks), ``chiprun_out/live_log.txt``
+and ``chiprun_out/live_run/`` (phase 15c);
 phase 11's episode files stay in
 ``chiprun_out/learner_episodes/`` and the run directories (under ``runs/``,
 git-ignored) are removed at the end.
@@ -1468,7 +1498,271 @@ def mesh_phase(torch, k1, conf, report, path_launches, gen, device, peaks, unfus
     return dict(dp_rank_steps=2 * MESH_STEPS, tp_rank_steps=2 * MESH_STEPS)
 
 
-def main() -> int:
+# Phase 15: learning on the card. The canaries of tests/test_learning.py
+# (pydreamer_tpu_torch/scripts/canaries.py) under gru_layernorm_dv2, each held
+# to the JAX test's own gate; then a live run of the launcher at the
+# `gridworld` preset's width, and the run tools on its directory.
+EP_LEN = 8  # the bandit's episode length: its optimal return
+
+
+def bandit_gate(r) -> bool:
+    """test_return_improves_on_bandit: not vacuous, near optimal, a large gain."""
+    return (r["before"] < 0.75 * EP_LEN and r["after"] > 0.75 * EP_LEN
+            and r["after"] > r["before"] + 0.25 * EP_LEN)
+
+
+def pixel_until(early: float, late: float) -> bool:
+    """test_policy_return_improves_on_gridworld_pixels: the rolling gate."""
+    return late > early + 0.08 and late > 0.05
+
+
+GATES = {
+    "bandit": bandit_gate,
+    "gridworld_wm": lambda r: r["after"] < 0.5 * r["before"],
+    "gridworld_pixels": lambda r: r["passed"],
+    "point": lambda r: r["after"] > r["before"] + 4.0 and r["after"] > 12.0,
+}
+
+# The live run of 15c: `defaults gridworld` with the K1 cell, one CPU generator
+# that reloads the learner's checkpoint every 15 s, limit_step_ratio as
+# demo_gridworld.sh has it. log_interval 10: the first logged window is steps
+# 11-20 (the trainer logs no first window); on the H100 loss_model halved from
+# there by step 40. It runs beside 15a and 15b: the learner and the generator
+# are processes of their own, and the card has room for both.
+LIVE_STEPS = 120
+LIVE_ARGS = ["--configs", "defaults", "gridworld", "--gru_type", "gru_layernorm_dv2",
+             "--limit_step_ratio", "200", "--model_reload_interval", "15",
+             "--generator_log_every", "2", "--eval_interval", "0", "--save_interval", "40",
+             "--log_interval", "10", "--data_workers", "2", "--n_steps", str(LIVE_STEPS)]
+LIVE_TIMEOUT_S = 420
+
+
+def run_tool(root, tool: str, *args) -> str:
+    """``python -m pydreamer_tpu_torch.scripts.<tool> args`` -> its last line."""
+    proc = subprocess.run([sys.executable, "-m", f"pydreamer_tpu_torch.scripts.{tool}",
+                           *map(str, args)], cwd=root, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"{tool} exit {proc.returncode}:\n{proc.stdout}\n{proc.stderr}")
+    return proc.stdout.strip().splitlines()[-1]
+
+
+def learning_phase(torch, k1, report, path_launches, per_step, gen, device, peaks,
+                   unfused) -> None:
+    """Phase 15: the live GridWorld run started (15c), K1 at the canaries' and
+    the live run's shapes (15a), the four canaries on the card through K1
+    (15b), then the live run's checks and the run tools. Adds the paths'
+    launches by (schedule, M, H) and their train steps or acting calls by (M, H)."""
+    import importlib.util
+    import os
+    import re
+    import shutil
+    import tempfile
+
+    from pydreamer_tpu_torch.conf import parse_args
+    from pydreamer_tpu_torch.scripts import canaries
+    from pydreamer_tpu_torch.tracking import Run
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    out = report["learning"] = {}
+    confs = {name: make("gru_layernorm_dv2") for name, make in canaries.CONFS.items()}
+    live_conf = parse_args(LIVE_ARGS[:5], config_dir=str(root / "config"))
+
+    # 15c, started: the launcher in a session of its own, its log to a file.
+    run_dir = root / "runs" / "chip_smoke_live"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    run_dir.parent.mkdir(exist_ok=True)
+    env = {k: v for k, v in os.environ.items() if k != "PYDREAMER_RUN_DIR"}
+    env["PYTHONPATH"] = str(root)
+    cmd = ["timeout", "-k", "10", str(LIVE_TIMEOUT_S), sys.executable, "-m",
+           "pydreamer_tpu_torch.launch", *LIVE_ARGS, "--run_dir", str(run_dir)]
+    log_path = OUT_DIR / "live_log.txt"
+    t_live = time.time()
+    with open(log_path, "w") as log_file:
+        proc = subprocess.Popen(cmd, cwd=root, env=env, start_new_session=True,
+                                stdout=log_file, stderr=subprocess.STDOUT)
+
+    # 15a. K1 at the new shapes: f32 at each canary's posterior (M=B), dream
+    # (M=T*B) and acting (M=1) rows; bf16 at the live run's M=32 and M=1536.
+    shapes = {}
+    for name, c in confs.items():
+        rows = [c.batch_size, c.batch_length * c.batch_size]
+        rows += [1] if name != "gridworld_wm" else []
+        for M in rows:
+            shapes[("f32", M, c.hidden_dim, c.deter_dim)] = torch.float32
+    T, B = live_conf.batch_length, live_conf.batch_size
+    In, H = live_conf.hidden_dim, live_conf.deter_dim
+    shapes[("skinny", B, In, H)] = torch.bfloat16
+    shapes[("wide", T * B, In, H)] = torch.bfloat16
+    for (want, M, In_s, H_s), dtype in shapes.items():
+        res = check_k1(torch, k1, M, In_s, H_s, dtype, want, gen, device, True, peaks, unfused)
+        report["k1"].append(res)
+        print(f"[15a] K1 {want} M={M} In={In_s} H={H_s}: {k1_summary(res)}")
+
+    # 15b. The canaries on the card, each launch of K1 counted.
+    scratch = Path(tempfile.mkdtemp(prefix="canaries_", dir=root / "runs"))
+    runners = {"bandit": canaries.bandit, "gridworld_wm": canaries.gridworld_wm,
+               "gridworld_pixels": lambda d, **kw: canaries.gridworld_pixels(d, pixel_until, **kw),
+               "point": canaries.point}
+    out["canaries"] = {}
+    for name, runner in runners.items():
+        c = confs[name]
+        torch.cuda.synchronize()
+        k1.LAUNCHES.reset()
+        r = runner(scratch / name, device=device, gru_type="gru_layernorm_dv2")
+        torch.cuda.synchronize()
+        rows, sched = dict(k1.LAUNCHES.by_rows), dict(k1.LAUNCHES.by_schedule)
+        Tc, Bc, Hc = c.batch_length, c.batch_size, c.imag_horizon
+        want_rows = {Bc: r["steps"] * Tc, Tc * Bc: r["steps"] * Hc, 1: r["policy_calls"]}
+        want_rows = {m: n for m, n in want_rows.items() if n}
+        r.update(launches_by_rows=rows, launches_by_schedule=sched, ok=GATES[name](r))
+        out["canaries"][name] = r
+        print(f"[15b] {name}: before {r['before']:.4f}, after {r['after']:.4f}, "
+              f"{r['steps']} steps, {r['seconds']:.1f} s, {r['policy_calls']} acting calls; "
+              f"K1 launches {rows} {sched}; gate {'passed' if r['ok'] else 'FAILED'}")
+        if sched != {"f32": sum(want_rows.values())} or rows != want_rows:
+            raise AssertionError(f"[15b] {name}: K1 launches {rows} {sched}, expected "
+                                 f"{want_rows}, all f32")
+        if not math.isfinite(r["metrics"]["loss_model"]) or not r["ok"]:
+            raise AssertionError(f"[15b] {name} failed the JAX test's gate: {r}")
+        for M, n in rows.items():
+            key = ("f32", M, c.deter_dim)
+            path_launches[key] = path_launches.get(key, 0) + n
+            per_step[(M, c.deter_dim)] = per_step.get((M, c.deter_dim), 0) + (
+                r["policy_calls"] if M == 1 else r["steps"])
+    shutil.rmtree(scratch)
+    torch.cuda.empty_cache()
+
+    # 15c. The live run's end and its checks.
+    rc = proc.wait()
+    live_s = log_path.stat().st_mtime - t_live  # to the launcher's last line
+    log = log_path.read_text()
+    left = session_processes(proc.pid)
+    for pid in left:
+        os.kill(pid, 9)
+    live = out["live"] = dict(rc=rc, wall_s=live_s, processes_left=left)
+    print(f"[15c] launcher (gridworld width): exit {rc} after {live_s:.1f} s, processes left "
+          f"{left} (log: chiprun_out/live_log.txt)")
+    if rc != 0 or left:
+        raise AssertionError(f"live run exit {rc}, processes left {left}:\n{log[-3000:]}")
+    k1_line = re.search(r"Learner K1 launches: by schedule (\{.*?\}), by rows (\{.*?\})", log)
+    if k1_line is None or "Learner device: cuda" not in log:
+        raise AssertionError(f"live run: no K1 launch line or not on the card:\n{log[-3000:]}")
+    sched = json.loads(k1_line.group(1))
+    lrows = {int(k): v for k, v in json.loads(k1_line.group(2)).items()}
+    H_imag, n = live_conf.imag_horizon, LIVE_STEPS
+    want_sched = {"skinny": n * T + T - 1, "wide": n * H_imag}  # step 1 logs the dream: T-1 more
+    metrics = Run(run_dir).read_metrics()
+    train = [m for m in metrics if "train/loss_model" in m]
+    agent = [m for m in metrics if "agent/return" in m]
+    # The generator logs at the step of the checkpoint it acts from: 0 before its first load.
+    before_load = [m for m in agent if m["_step"] == 0]
+    after_load = [m for m in agent if m["_step"] > 0]
+    loads = [int(x) for x in re.findall(r"Generator loaded model checkpoint (\d+)", log)]
+    live.update(
+        launches_by_schedule=sched, launches_by_rows=lrows, checkpoint_loads=loads,
+        loss_model=[(m["_step"], m["train/loss_model"]) for m in train],
+        loop_ms_per_step=[1e3 / m["train/fps"] for m in train],
+        timers_ms=[{k[len("train/timer_"):]: v * 1e3 for k, v in m.items()
+                    if k.startswith("train/timer_")} for m in train],
+        agent_rows_before_load=len(before_load), agent_rows_after_load=len(after_load),
+        return_cum=[(m["_step"], m["agent/return_cum"]) for m in agent],
+        env_steps=agent[-1]["agent/env_steps"] if agent else 0)
+    if len(train) < 2 or not agent:
+        raise AssertionError(f"live run: {len(train)} train rows, {len(agent)} agent rows")
+    first, last = train[0]["train/loss_model"], train[-1]["train/loss_model"]
+    print(f"[15c] learner: K1 launches {sched} {lrows}; loss_model {first:.2f} (step "
+          f"{train[0]['_step']}) -> {last:.2f} (step {train[-1]['_step']}); loop ms/step by "
+          f"window {[round(x, 2) for x in live['loop_ms_per_step']]}; timer_step/data/other ms "
+          f"of the last window "
+          f"{[round(train[-1].get(f'train/timer_{k}', float('nan')) * 1e3, 2) for k in ('step', 'data', 'other')]}")
+    print(f"[15c] generator: {len(before_load)} agent rows before its first checkpoint load, "
+          f"{len(after_load)} after (loads at steps {loads}); agent/return_cum "
+          f"{agent[0]['agent/return_cum']:.4f} at the start, {agent[-1]['agent/return_cum']:.4f} "
+          f"at the end ({live['env_steps']} env steps)")
+    if sched != want_sched or lrows != {B: want_sched["skinny"], T * B: want_sched["wide"]}:
+        raise AssertionError(f"live run K1 launches {sched} {lrows}, expected {want_sched}, "
+                             "none generic")
+    if not last < 0.5 * first:
+        raise AssertionError(f"live run loss_model {live['loss_model']}: not halved")
+    if not before_load or not after_load or not loads:
+        raise AssertionError(f"live run agent rows: {len(before_load)} before the first "
+                             f"checkpoint load, {len(after_load)} after; loads {loads}")
+    path_launches[("skinny", B, H)] = path_launches.get(("skinny", B, H), 0) + sched["skinny"]
+    path_launches[("wide", T * B, H)] = path_launches.get(("wide", T * B, H), 0) + sched["wide"]
+    per_step[(B, H)] = per_step.get((B, H), 0) + n
+    per_step[(T * B, H)] = per_step.get((T * B, H), 0) + n
+
+    # The run tools on the run directory. plot_curves draws with matplotlib and
+    # make_gif with PIL: where one is not installed that tool is not run, and
+    # the metrics and the dump it would read are kept in chiprun_out/live_run/.
+    tools_dir = OUT_DIR / "live_run"
+    shutil.rmtree(tools_dir, ignore_errors=True)
+    tools_dir.mkdir()
+    dumps = sorted(run_dir.rglob("d2_wm_dream/*.npz"))
+    if not dumps:
+        raise AssertionError("live run: no d2_wm_dream dump")
+    shutil.copy(run_dir / "metrics.jsonl", tools_dir / "metrics.jsonl")
+    shutil.copy(dumps[-1], tools_dir / dumps[-1].name)
+    csv_path = tools_dir / "metrics.csv"
+    said = {"export_metrics": run_tool(root, "export_metrics", run_dir, csv_path)}
+    header = csv_path.read_text().splitlines()[0].split(",")
+    if header[0] != "_step":
+        raise AssertionError(f"export_metrics: CSV header {header[:3]}")
+    drawn = {"plot_curves": ("matplotlib", ("plot_curves", run_dir, "--metric",
+                                            "agent/return_cum", "--out",
+                                            tools_dir / "return_curve.png")),
+             "make_gif": ("PIL", ("make_gif", dumps[-1], tools_dir / "dream.gif"))}
+    for tool, (package, args) in drawn.items():
+        if importlib.util.find_spec(package) is None:
+            said[tool] = f"not run: {package} is not installed here"
+            continue
+        said[tool] = run_tool(root, *args)
+        if not Path(args[-1]).stat().st_size:
+            raise AssertionError(f"{tool} wrote an empty {args[-1]}")
+    live["tools"] = said
+    print(f"[15c] tools on the run directory: {said}; CSV columns start {header[:3]}")
+    shutil.rmtree(run_dir)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[15] phase 15 took {out['seconds']:.1f} s (15c ran beside 15a and 15b)")
+
+
+def finish(torch, report, path_launches, per_step, smi: str, name: str) -> int:
+    """The kernels line (one entry per timed K1 row: its launches on the path
+    that runs its shape, per train step or acting call), the nvidia-smi line
+    and the last line."""
+    kernels = []
+    for r in report["k1"]:
+        n = path_launches.get((r["schedule"], r["M"], r["H"]), 0)
+        common = dict(route="cuda", source=K1_SOURCE, replaces=K1_REPLACES, bound_ms=r["bound_ms"],
+                      bound_by=r["bound_by"], plain_ms=r["plain_ms"],
+                      library_ms=r["gemm_library_ms"], unfused_ms=r["unfused_ms"])
+        kernels.append(dict(name=f"gru_dv2.{r['schedule']}[M={r['M']},H={r['H']},{r['dtype']}]",
+                            launches=n, launches_per_step=n / per_step[(r["M"], r["H"])] if n else 0,
+                            max_abs_err=r["max_abs_err"], ms=r["ms"], ms_l2_warm=r["ms_l2_warm"],
+                            **common))
+        if "generic_ms" in r:
+            kernels.append(dict(name=f"gru_dv2.generic[M={r['M']},H={r['H']},bfloat16]", launches=0,
+                                launches_per_step=0, max_abs_err=r["generic_max_abs_err"],
+                                ms=r["generic_ms"], **common))
+    marks = sorted(report.pop("phase_start").items(), key=lambda kv: kv[1])
+    marks.append(("end", time.perf_counter()))
+    report["phase_s"] = {str(a): b_t - a_t for (a, a_t), (_, b_t) in zip(marks, marks[1:])}
+    print(f"[t] seconds by phase: { {k: round(v, 1) for k, v in report['phase_s'].items()} }; "
+          f"total {marks[-1][1] - marks[0][1]:.1f}")
+    (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv not in ([], ["--learning-only"]):
+        print("usage: chip_smoke.py [--learning-only]  (phases 1 and 15 alone)", file=sys.stderr)
+        return 2
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; it needs a CUDA card",
@@ -1486,8 +1780,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda:0")
     OUT_DIR.mkdir(exist_ok=True)
-    report = {}
+    report = {"phase_start": {}}
 
+    report["phase_start"][1] = time.perf_counter()
     # 1. Build K1; the card's name and power limit.
     t0 = time.time()
     lib_path = k1.build()
@@ -1503,6 +1798,7 @@ def main() -> int:
                   cuda=torch.version.cuda)
     print(f"    card {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
 
+    report["phase_start"][2] = time.perf_counter()
     # 2. Every K1 schedule against its plain version; times beside the yardsticks.
     conf = Conf(FLAGSHIP)
     T, B, H_imag = conf.batch_length, conf.batch_size, conf.imag_horizon
@@ -1511,6 +1807,11 @@ def main() -> int:
     bf16, f32 = torch.bfloat16, torch.float32
     unfused = unfused_cell(torch, layer_norm)
     report["k1"] = []
+    if argv:
+        report["phase_start"][15] = report["phase_start"].pop(2)
+        path_launches, per_step = {}, {}
+        learning_phase(torch, k1, report, path_launches, per_step, gen, device, peaks, unfused)
+        return finish(torch, report, path_launches, per_step, smi, name)
     for M, H_s, dtype, want in ((B, H, bf16, "skinny"), (T * B, H, bf16, "wide"),
                                 (B, 2048, bf16, "skinny"), (T * B, 2048, bf16, "wide"),
                                 (B, H, f32, "f32"), (T * B, H, f32, "f32")):
@@ -1539,6 +1840,7 @@ def main() -> int:
     if out32.dtype != f32 or k1.LAUNCHES.by_schedule != {"f32": 1} or not err32 <= FWD_TOL_F32:
         raise AssertionError(f"float32 cell: {out32.dtype}, {k1.LAUNCHES.by_schedule}, err {err32}")
 
+    report["phase_start"][3] = time.perf_counter()
     # 3. Fused vs unfused cell through the full-width forward.
     torch.manual_seed(0)
     model = Dreamer(conf, device=device)
@@ -1555,6 +1857,7 @@ def main() -> int:
     if not rel <= LOSS_RTOL:
         raise AssertionError(f"fused vs unfused loss_model rel diff {rel} > {LOSS_RTOL}")
 
+    report["phase_start"][4] = time.perf_counter()
     # 4. The main path: full-width TrainStep, 2 warm-up + 5 timed steps.
     ts = TrainStep(model, conf, device=device)
     _, state, _ = timed_steps(torch, ts, obs, model.init_state(B), 0, 2)
@@ -1582,6 +1885,7 @@ def main() -> int:
     if tuple(state[0].shape) != (B, H) or not torch.isfinite(state[0]).all():
         raise AssertionError("out_state h is not finite of shape (B, deter)")
 
+    report["phase_start"][5] = time.perf_counter()
     # 5. Profile one step.
     state, prof5, events = profile_step(torch, k1, ts, obs, state, step + 1)
     report["profile"] = prof5
@@ -1592,6 +1896,7 @@ def main() -> int:
     check_profiled_k1(prof5, T, H_imag, "[5] profiled step")
     step += 1
 
+    report["phase_start"][6] = time.perf_counter()
     # 6. Step time with the K1 cell against the unfused cell, in turns
     #    (unfused, K1, K1, unfused), 5 steps per window after 2 warm-up steps.
     ts_xla = TrainStep(xla, conf, device=device)
@@ -1612,12 +1917,14 @@ def main() -> int:
     del model, xla, ts, ts_xla, state, state_xla
     torch.cuda.empty_cache()
 
+    report["phase_start"][7] = time.perf_counter()
     # 7. Inference shapes: skinny at M=1 and M=8, H=2048, against its plain version.
     for M in (1, 8):
         res = check_k1(torch, k1, M, In, 2048, bf16, "skinny", gen, device, True, peaks, unfused)
         report["k1"].append(res)
         print(f"[7] K1 skinny M={M} H=2048: {k1_summary(res)}")
 
+    report["phase_start"][8] = time.perf_counter()
     # 8. The DMC path: one forward and backward with the K1 cell and with the
     #    unfused cell, same weights, same noise.
     dconf = Conf(DMC)
@@ -1655,6 +1962,7 @@ def main() -> int:
     del dxla
     torch.cuda.empty_cache()
 
+    report["phase_start"][9] = time.perf_counter()
     # 9. Drive the DMC train step: 2 warm-up + 5 timed steps.
     dts = TrainStep(dmodel, dconf, device=device)
     _, dstate, _ = timed_steps(torch, dts, dobs, dmodel.init_state(B), 0, 2)
@@ -1730,6 +2038,7 @@ def main() -> int:
         f"{smi}\n[5] flagship step\n{table}\n[9] DMC step\n"
         f"{events9.table(sort_by='self_device_time_total', row_limit=40)}\n")
 
+    report["phase_start"][10] = time.perf_counter()
     # 10. Dreamer.inference on the DMC model, the generators' acting step.
     report["inference"] = {}
     n_calls = 50
@@ -1764,20 +2073,24 @@ def main() -> int:
     del dmodel, dts, dstate, dobs
     torch.cuda.empty_cache()
 
+    report["phase_start"][11] = time.perf_counter()
     # 11. The learner loop: trainer.run on the flagship model from episode files.
     n_test_calls = learner_phase(torch, k1, conf, report, path_launches, gen, device, peaks,
                                  unfused)
 
+    report["phase_start"][12] = time.perf_counter()
     # 12. The actors: K1 at the flagship's acting shapes, the generator on the
     #     card, the launcher feeding the learner from live generators.
     acting_calls = generator_phase(torch, k1, conf, report, path_launches, gen, device, peaks,
                                    unfused)
 
+    report["phase_start"][13] = time.perf_counter()
     # 13. The probes and the baselines at the MiniWorld width.
     probe_launches, probe_calls = probe_phase(torch, k1, report, gen, device)
     for key, n in probe_launches.items():
         path_launches[key] += n
 
+    report["phase_start"][14] = time.perf_counter()
     # 14. The learner on a mesh: NCCL at world size 1, two data ranks, two
     #     model ranks.
     mesh_steps = mesh_phase(torch, k1, conf, report, path_launches, gen, device, peaks, unfused)
@@ -1797,27 +2110,11 @@ def main() -> int:
                 (LEARNER["test_batch_size"], H): n_test_calls,
                 (T * LEARNER["test_batch_size"], H): n_test_calls,
                 (1, H): acting_calls[1], (8, H): acting_calls[8]}
-    kernels = []
-    for r in report["k1"]:
-        key = (r["schedule"], r["M"], r["H"]) if r["dtype"] == "bfloat16" else None
-        n = path_launches.get(key, 0)
-        common = dict(route="cuda", source=K1_SOURCE, replaces=K1_REPLACES, bound_ms=r["bound_ms"],
-                      bound_by=r["bound_by"], plain_ms=r["plain_ms"],
-                      library_ms=r["gemm_library_ms"], unfused_ms=r["unfused_ms"])
-        kernels.append(dict(name=f"gru_dv2.{r['schedule']}[M={r['M']},H={r['H']},{r['dtype']}]",
-                            launches=n, launches_per_step=n / per_step[(r["M"], r["H"])] if n else 0,
-                            max_abs_err=r["max_abs_err"], ms=r["ms"], ms_l2_warm=r["ms_l2_warm"],
-                            **common))
-        if "generic_ms" in r:
-            kernels.append(dict(name=f"gru_dv2.generic[M={r['M']},H={r['H']},bfloat16]", launches=0,
-                                launches_per_step=0, max_abs_err=r["generic_max_abs_err"],
-                                ms=r["generic_ms"], **common))
-    (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
-    print(json.dumps({"kernels": kernels}))
-    print(smi)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
-                                             "count": torch.cuda.device_count()}}))
-    return 0
+    report["phase_start"][15] = time.perf_counter()
+    # 15. Learning on the card: K1 at the new shapes, the canaries through K1,
+    #     the live GridWorld run and the run tools.
+    learning_phase(torch, k1, report, path_launches, per_step, gen, device, peaks, unfused)
+    return finish(torch, report, path_launches, per_step, smi, name)
 
 
 if __name__ == "__main__":

@@ -35,10 +35,16 @@ would use here (``torch.get_num_threads()``: the host's cores, or
 all of them in every process, oversubscribes the host once the generators
 act, and spinning OpenMP threads then hold back the learner's host-bound
 step.
+
+One flag is the launcher's own and not a config key (the config keys match
+the JAX package's): ``--model_reload_interval`` (seconds, default 120, the
+default of ``generator.main``), how often a generator polls the learner's
+checkpoint once it has loaded one.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import multiprocessing as mp
 import os
@@ -131,6 +137,10 @@ def rank_environments(n_local: int) -> List[Dict[str, str]]:
 
 def launch(argv: Optional[List[str]] = None, config_dir: str = "./config"):
     configure_logging("[launcher]")
+    # No abbreviations: `--model` is a config key, not `--model_reload_interval`.
+    own = argparse.ArgumentParser(add_help=False, allow_abbrev=False)
+    own.add_argument("--model_reload_interval", type=float, default=120.0)
+    opts, argv = own.parse_known_args(argv)
     conf = parse_args(argv, config_dir=config_dir)
 
     worker_type, worker_index = get_worker_info()
@@ -175,6 +185,7 @@ def launch(argv: Optional[List[str]] = None, config_dir: str = "./config"):
                 policy_prefill=conf.generator_prefill_policy,
                 num_steps_prefill=conf.generator_prefill_steps // conf.generator_workers,
                 split_fraction=0.05,
+                model_reload_interval=opts.model_reload_interval,
                 num_threads=num_threads,
             ))
 
@@ -191,6 +202,7 @@ def launch(argv: Optional[List[str]] = None, config_dir: str = "./config"):
                 policy_main="network",
                 policy_prefill=conf.generator_prefill_policy,
                 num_steps_prefill=conf.generator_prefill_steps // max(conf.generator_workers_train, 1),
+                model_reload_interval=opts.model_reload_interval,
                 num_threads=num_threads,
             ))
 
@@ -204,6 +216,7 @@ def launch(argv: Optional[List[str]] = None, config_dir: str = "./config"):
                 worker_id=conf.generator_workers + i,
                 policy_main="network",
                 metrics_prefix="agent_eval",
+                model_reload_interval=opts.model_reload_interval,
                 num_threads=num_threads,
             ))
 
@@ -255,6 +268,7 @@ def launch_generator(ctx, env_id, conf, save_uri, save_uri2=None,
                      worker_id=0, num_steps=int(1e9), num_steps_prefill=0,
                      limit_step_ratio=0.0, split_fraction=0.0,
                      metrics_prefix="agent", log_metrics=True,
+                     model_reload_interval: float = 120.0,
                      num_threads: Optional[int] = None) -> mp.Process:
     """Start one generator process acting on the CPU with ``num_threads``
     torch threads (default: torch's own count)."""
@@ -280,6 +294,7 @@ def launch_generator(ctx, env_id, conf, save_uri, save_uri2=None,
             metrics_gamma=conf.gamma,
             log_every=conf.get("generator_log_every", 10),
             envs_per_worker=conf.get("generator_envs_per_worker", 1),
+            model_reload_interval=model_reload_interval,
         ), num_threads or torch.get_num_threads()))
     p.start()
     return p

@@ -27,8 +27,9 @@ print(json.dumps({"imported": names, "modules": sorted(sys.modules)}))
 
 
 def test_port_imports_no_jax_and_no_jax_package():
-    """Import the package and every submodule in a fresh interpreter (this
-    process has JAX loaded already) and inspect sys.modules."""
+    """Import the package and every submodule, the run tools of ``scripts/``
+    included, in a fresh interpreter (this process has JAX loaded already) and
+    inspect sys.modules: no JAX, no JAX package, nothing of ``tests/``."""
     proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
@@ -40,9 +41,13 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert {"pydreamer_tpu_torch.models.noise", "pydreamer_tpu_torch.training.trainer",
             "pydreamer_tpu_torch.data.prefetch", "pydreamer_tpu_torch.native",
             "pydreamer_tpu_torch.models.probes", "pydreamer_tpu_torch.models.baselines",
-            "pydreamer_tpu_torch.analysis"} <= want
+            "pydreamer_tpu_torch.analysis", "pydreamer_tpu_torch.scripts.canaries",
+            "pydreamer_tpu_torch.scripts.export_metrics", "pydreamer_tpu_torch.scripts.plot_curves",
+            "pydreamer_tpu_torch.scripts.make_gif",
+            "pydreamer_tpu_torch.scripts.diagnose_gridworld_pixels",
+            "pydreamer_tpu_torch.scripts.diagnose_continuous"} <= want
     bad = [m for m in out["modules"]
-           if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "msgpack")
+           if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "msgpack", "tests")
            or m == "pydreamer_tpu" or m.startswith("pydreamer_tpu.")]
     assert not bad, bad
 

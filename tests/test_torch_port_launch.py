@@ -188,3 +188,37 @@ def test_sigterm_reaps_worker_pool(tmp_path):
         for c in psutil.Process(proc.pid).children(recursive=True) if proc.poll() is None else []:
             c.kill()
         proc.kill()
+
+
+def test_model_reload_interval_reaches_every_generator(tmp_path, monkeypatch):
+    """``--model_reload_interval`` is the launcher's own flag, not a config
+    key (the config stays JAX's): it goes to each generator it starts, 120 s
+    (``generator.main``'s default) when not given."""
+    seen = []
+
+    class Stop(Exception):
+        pass
+
+    def fake_generator(ctx, env_id, conf, **kw):
+        seen.append((conf.to_dict(), kw["model_reload_interval"]))
+        if len(seen) % 2 == 0:  # both generators asked for: stop before the learner starts
+            raise Stop
+        return None
+
+    monkeypatch.setattr(tlaunch, "launch_generator", fake_generator)
+    monkeypatch.setenv("PYDREAMER_RUN_DIR", str(tmp_path / "run"))
+    handler = signal.getsignal(signal.SIGTERM)
+    argv = ["--configs", "defaults", "gridworld", "debug", "--generator_workers", "2",
+            "--model", "dreamer"]  # a config key that starts like the flag
+    try:
+        with pytest.raises(Stop):
+            tlaunch.launch(argv + ["--model_reload_interval", "15"],
+                           config_dir=str(REPO_ROOT / "config"))
+        with pytest.raises(Stop):
+            tlaunch.launch(argv, config_dir=str(REPO_ROOT / "config"))
+    finally:
+        signal.signal(signal.SIGTERM, handler)
+    from pydreamer_tpu.conf import parse_args as jparse
+    want = jparse(argv, config_dir=str(REPO_ROOT / "config")).to_dict()
+    assert [r for _, r in seen] == [15.0, 15.0, 120.0, 120.0]
+    assert all(conf == want for conf, _ in seen)
