@@ -10,14 +10,19 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
 2. Hold every K1 schedule against its plain PyTorch version: forward max-abs
    error and the gradients of all six inputs. ``skinny`` and ``wide`` at the
    two main-path shapes (M=32 and M=1536 rows, In=1000, H=1024, bf16) and at
-   H=2048 (the ``defaults`` width), ``generic`` at small ragged shapes, ``f32``
-   at both main-path row counts in float32. Time each (CUDA graphs of many
-   launches, cold and warm L2) beside its bound, the plain version, the
-   cuBLAS product of the concatenated operands (``gemm_library_ms``), the
-   unfused composition the ``gru_layernorm_dv2_xla`` cell runs
-   (``unfused_ms``), and, at the main-path shapes, the ``generic`` schedule
-   (the first, unpipelined design). The port calls none of these yardsticks. Then the fused
-   cell under ``precision: float32`` on the card: it must take ``f32``.
+   H=2048 (the ``defaults`` width), ``skinny_f32`` and ``wide_f32`` at the
+   same four shapes in float32 (3xTF32 on the tensor cores, held to the f32
+   tolerance with TF32 off in the plain version), ``generic`` and ``f32``
+   at small ragged shapes. Time each (CUDA graphs of many launches, cold and
+   warm L2) beside its bound (for f32 operands the faster of FFMA and
+   3xTF32, the route named), the plain version, the cuBLAS product of the
+   concatenated operands (``gemm_library_ms``), the unfused composition the
+   ``gru_layernorm_dv2_xla`` cell runs (``unfused_ms``), and, at H=1024, the
+   first design of the dtype at the same shape: ``generic`` (the first,
+   unpipelined bf16 design) or ``f32`` (the FFMA design, ``f32_ffma_ms``),
+   each held to the same tolerance. The port calls none of these
+   yardsticks. Then the fused cell under ``precision: float32`` on the
+   card: it must take ``skinny_f32``.
 3. Check the train step's forward at full width with the K1 cell against the
    unfused ``gru_layernorm_dv2_xla`` cell (same weights, same noise).
 4. Drive the main path: the flagship Dreamer/Atari train step
@@ -109,10 +114,15 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
    noise: 3 bf16 steps against one process at B=32 (step 1, from the same
    weights: every world-model loss and ``grad_norm`` within 2e-2 relative;
    steps 2-3: ``loss_model`` and ``loss_image`` within 2e-2, the rest
-   reported, see ``WM_TOTALS``), 3 float32 steps (K1's ``f32`` schedule,
-   TF32 off) with every world-model metric within 1e-4 at every step, and
-   per rank per step 48 ``skinny`` [M=16] and 15 ``wide`` [M=768] launches,
-   none ``generic``. 14c: ``mesh_model: 2``, ``tp_min_size: 1024``
+   reported, see ``WM_TOTALS``), 3 float32 steps (TF32 off) with every
+   world-model metric within 1e-4 at every step, and per rank per step 48
+   ``skinny`` [M=16] and 15 ``wide`` [M=768] launches in bf16, 48
+   ``skinny_f32`` [M=16] and 15 ``wide_f32`` [M=768] in float32, none
+   ``generic`` or ``f32``. The float32 reference (one process, B=32) takes
+   48 ``skinny_f32`` + 15 ``wide_f32`` a step; its step is then timed in
+   turns against the same step with K1 put on the FFMA schedule ``f32``
+   (``f32_step_ab``). K1 ``skinny_f32`` / ``wide_f32`` at M=16 / M=768 are
+   held and timed beside the bf16 rows. 14c: ``mesh_model: 2``, ``tp_min_size: 1024``
    on two ranks: the sharded parameters listed, each rank's parameter and
    AdamW bytes smaller by half of the sharded bytes, 3 steps against one
    process as in 14b, K1 at M=32 / M=1536 on the gathered gate kernels. The
@@ -120,8 +130,9 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
    and one host, so they are no multi-GPU number.
 
 15. Learning on the card. 15a: K1 at the shapes no earlier phase launched,
-   against its plain version and timed as in 2: ``f32`` at each canary's
-   posterior (M=B), dream (M=T*B) and acting (M=1) rows (H=32 and 64), and
+   against its plain version and timed as in 2: ``skinny_f32`` at each
+   canary's posterior (M=B) and acting (M=1) rows, ``wide_f32`` at its dream
+   (M=T*B) rows (H=32 and 64), and
    ``skinny`` M=32 and ``wide`` M=1536 at the ``gridworld`` preset's In=H=256
    in bf16. 15b: the four learning canaries of ``tests/test_learning.py``
    (``pydreamer_tpu_torch/scripts/canaries.py``) on the card with
@@ -129,8 +140,9 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
    (bandit: after > 6 and after > before + 2; GridWorld world model:
    ``loss_model`` at step 60 under half of step 5's; pixel policy: the rolling
    80-episode gate clears by step 4000; point: after > before + 4 and after >
-   12), counts set to 0 just before and read just after each: T posterior and
-   H dream launches a train step and one a policy call, all ``f32``. 15c: ``python
+   12), counts set to 0 just before and read just after each: T posterior
+   launches a train step on ``skinny_f32``, H dream launches on ``wide_f32``
+   and one ``skinny_f32`` launch a policy call, exact per schedule. 15c: ``python
    -m pydreamer_tpu_torch.launch --configs defaults gridworld --gru_type
    gru_layernorm_dv2`` (deter 256, T=48, B=32, bf16, ``Grid-8x64``, one CPU
    generator reloading the checkpoint every 15 s) for 120 steps under
@@ -207,11 +219,12 @@ DMC = dict(FLAGSHIP, deter_dim=2048, action_dim=12, kl_weight=1.0, gamma=0.995, 
            actor_grad="dynamics", actor_dist="trunc_normal")
 
 # Dense peak rates from NVIDIA's data sheets: (bytes/s, bf16 tensor FLOP/s,
-# fp32 non-tensor FLOP/s), at the card's full power limit.
+# fp32 non-tensor FLOP/s, TF32 tensor FLOP/s), at the card's full power
+# limit. TF32 is half the bf16 rate (the data sheets give 495 for the SXM part).
 PEAKS = {
-    "H100 PCIe": (2.0e12, 756e12, 51e12),
-    "H100 NVL": (3.9e12, 835e12, 60e12),
-    "H100": (3.35e12, 989e12, 67e12),  # SXM5 (nvidia-smi: "NVIDIA H100 80GB HBM3")
+    "H100 PCIe": (2.0e12, 756e12, 51e12, 378e12),
+    "H100 NVL": (3.9e12, 835e12, 60e12, 417.5e12),
+    "H100": (3.35e12, 989e12, 67e12, 495e12),  # SXM5 (nvidia-smi: "NVIDIA H100 80GB HBM3")
 }
 
 FWD_TOL = 2e-3      # max-abs on h' (|h'| <= ~1), bf16 operands: f32 sums in another order, amplified by LayerNorm
@@ -234,17 +247,23 @@ def peaks_for(name: str):
     raise RuntimeError(f"no peak rates known for card {name!r}")
 
 
-def k1_bound_ms(M: int, In: int, H: int, peaks, tensor_cores: bool) -> tuple[float, str]:
+def k1_bound_ms(M: int, In: int, H: int, peaks, bf16: bool) -> tuple[float, str, str]:
     """Least time for one K1 step: each input read once, the output written once;
-    the two products at the bf16 tensor rate (bf16 operands) or the fp32 rate
-    (f32 operands, no TF32), LayerNorm and gates at the fp32 rate."""
-    bw, bf16_rate, f32_rate = peaks
-    elem = 2 if tensor_cores else 4
+    the two products at the bf16 tensor rate (bf16 operands) or, for f32
+    operands at full f32 accuracy, by the faster of two routes: FFMA at the
+    fp32 rate, or 3xTF32 (three TF32 products each) at the TF32 tensor rate;
+    LayerNorm and gates at the fp32 rate. -> (ms, "bytes" or "operations",
+    the route of the products: "bf16", "ffma" or "3xtf32")."""
+    bw, bf16_rate, f32_rate, tf32_rate = peaks
+    elem = 2 if bf16 else 4
     nbytes = elem * (M * In + M * H + In * 3 * H + H * 3 * H) + 4 * (2 * 3 * H) + 4 * M * H
     t_bytes = nbytes / bw
-    t_ops = (2 * M * (In + H) * 3 * H / (bf16_rate if tensor_cores else f32_rate)
-             + M * (8 * 3 * H + 10 * H) / f32_rate)
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+    flops = 2 * M * (In + H) * 3 * H
+    routes = {"bf16": flops / bf16_rate} if bf16 else {"ffma": flops / f32_rate,
+                                                       "3xtf32": 3 * flops / tf32_rate}
+    route = min(routes, key=routes.get)
+    t_ops = routes[route] + M * (8 * 3 * H + 10 * H) / f32_rate
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), route
 
 
 def time_ms(torch, fn, iters: int, flush=None) -> float:
@@ -351,24 +370,30 @@ def check_k1(torch, k1, M, In, H, dtype, want, gen, device, timed: bool, peaks, 
         result["unfused_ms"] = time_ms(torch, lambda: unfused(*ins), iters, flush)
         result["call_us"] = call_us(torch, lambda: k1.gru_dv2_cuda(*ins))
         result["unfused_call_us"] = call_us(torch, lambda: unfused(*ins))
-        if dtype == torch.bfloat16 and H == 1024:  # the first design, at the main-path shapes
-            generic = k1.Plan("generic", workspace=M * 3 * H)
-            result["generic_ms"] = time_ms(torch, lambda: k1._launch(generic, *ins), iters, flush)
-            out_g = k1._launch(generic, *ins)
-            result["generic_max_abs_err"] = (out_g - out_p).abs().max().item()
-        result["bound_ms"], result["bound_by"] = k1_bound_ms(M, In, H, peaks,
-                                                              dtype == torch.bfloat16)
+        if H == 1024:  # the dtype's first design at the same shape, as generic_ms / f32_ffma_ms
+            sched, key = ("generic", "generic") if dtype == torch.bfloat16 else ("f32", "f32_ffma")
+            first = k1.Plan(sched, workspace=M * 3 * H)
+            result[f"{key}_ms"] = time_ms(torch, lambda: k1._launch(first, *ins), iters, flush)
+            out_f = k1._launch(first, *ins)
+            torch.cuda.synchronize()
+            result[f"{key}_max_abs_err"] = err = (out_f - out_p).abs().max().item()
+            if not math.isfinite(err) or err > tol:
+                raise AssertionError(f"K1 {sched} M={M} H={H}: forward max-abs err {err} > {tol}")
+        result["bound_ms"], result["bound_by"], result["bound_route"] = k1_bound_ms(
+            M, In, H, peaks, dtype == torch.bfloat16)
         result["bound_share"] = result["bound_ms"] / result["ms"]
     return result
 
 
 def k1_summary(res) -> str:
     """One timed ``check_k1`` result on a line."""
+    first = "".join(f", {k} {res[f'{k}_ms']:.5f} (err {res[f'{k}_max_abs_err']:.3e})"
+                    for k in ("generic", "f32_ffma") if f"{k}_ms" in res)
     return (f"max_abs_err {res['max_abs_err']:.3e}, grads ok, {res['ms']:.5f} ms (L2 warm "
             f"{res['ms_l2_warm']:.5f}), bound {res['bound_ms']:.5f} ms ({res['bound_by']}, "
-            f"{100 * res['bound_share']:.1f}%), plain {res['plain_ms']:.5f}, gemm_library "
-            f"{res['gemm_library_ms']:.5f}, unfused {res['unfused_ms']:.5f} ms; host "
-            f"{res['call_us']:.1f} us/call (unfused {res['unfused_call_us']:.1f})")
+            f"{res['bound_route']}, {100 * res['bound_share']:.1f}%), plain {res['plain_ms']:.5f}, "
+            f"gemm_library {res['gemm_library_ms']:.5f}, unfused {res['unfused_ms']:.5f}{first} "
+            f"ms; host {res['call_us']:.1f} us/call (unfused {res['unfused_call_us']:.1f})")
 
 
 def timed_steps(torch, ts, obs, state, step: int, n: int):
@@ -1171,6 +1196,7 @@ def probe_phase(torch, k1, report, gen, device):
 # card over gloo (NCCL refuses two ranks on one device), which takes device
 # tensors.
 MESH_STEPS = 3
+AB_STEPS = 5          # steps a window of the float32 step's A/B in turns (14b)
 MESH_RTOL = 2e-2      # bf16: one rounding can flip an argmax sample (ROADMAP.md §2 item 11)
 MESH_RTOL_F32 = 1e-4  # float32, TF32 off: sums in another order only
 WM_METRICS = ("loss_model", "loss_image", "loss_reward", "loss_terminal", "loss_kl", "grad_norm")
@@ -1298,8 +1324,9 @@ def spawn_mesh(mode: str, device: str = "cuda:0") -> list:
     return reports
 
 
-def single_steps(torch, conf, n: int, device):
-    """The reference: one process, the whole batch, the same seeds."""
+def single_steps(torch, k1, conf, n: int, device):
+    """The reference: one process, the whole batch, the same seeds; K1's
+    launches counted each step."""
     from pydreamer_tpu_torch.models.dreamer import Dreamer
     from pydreamer_tpu_torch.training.train_step import TrainStep
     torch.manual_seed(0)
@@ -1310,15 +1337,53 @@ def single_steps(torch, conf, n: int, device):
     state = model.init_state(conf.batch_size)
     steps = []
     for step in range(1, n + 1):
+        k1.LAUNCHES.reset()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, metrics, _, _ = ts(obs, state, step)
         torch.cuda.synchronize()
         steps.append(dict(ms=(time.perf_counter() - t0) * 1e3,
-                          metrics={k: v.item() for k, v in metrics.items()}))
+                          metrics={k: v.item() for k, v in metrics.items()},
+                          by_rows=dict(k1.LAUNCHES.by_rows),
+                          by_schedule=dict(k1.LAUNCHES.by_schedule)))
     del model, ts
     torch.cuda.empty_cache()
     return steps
+
+
+def f32_step_ab(torch, k1, conf, device, n: int) -> dict:
+    """The float32 flagship step as the port runs it (K1 on ``skinny_f32`` /
+    ``wide_f32``) against the same step with K1's launches put on the first
+    f32 design (the FFMA schedule ``f32``), in turns (ffma, 3xtf32, 3xtf32,
+    ffma), ``n`` steps a window after 2 warm-up steps. -> ms per step by
+    variant and each window's launches by schedule."""
+    from pydreamer_tpu_torch.models.dreamer import Dreamer
+    from pydreamer_tpu_torch.training.train_step import TrainStep
+    plan = k1.plan
+
+    def ffma_plan(M, In, H, *dtypes):
+        return k1.Plan("f32", workspace=M * 3 * H)
+
+    torch.manual_seed(0)
+    model = Dreamer(conf, device=device)
+    ts = TrainStep(model, conf, device=device)
+    gen = torch.Generator(device=device).manual_seed(14)
+    obs = make_obs(torch, conf, gen, device)
+    _, state, _ = timed_steps(torch, ts, obs, model.init_state(conf.batch_size), 0, 2)
+    out, step = {"ffma": [], "3xtf32": [], "launches": []}, 2
+    try:
+        for variant in ("ffma", "3xtf32", "3xtf32", "ffma"):
+            k1.plan = ffma_plan if variant == "ffma" else plan
+            k1.LAUNCHES.reset()
+            ms, state, _ = timed_steps(torch, ts, obs, state, step, n)
+            step += n
+            out[variant].append(ms)
+            out["launches"].append((variant, dict(k1.LAUNCHES.by_schedule)))
+    finally:
+        k1.plan = plan
+    del model, ts
+    torch.cuda.empty_cache()
+    return out
 
 
 def compare_steps(got, want, rtol: float, what: str, later=WM_TOTALS) -> list:
@@ -1415,15 +1480,36 @@ def mesh_phase(torch, k1, conf, report, path_launches, gen, device, peaks, unfus
                              f"weights max abs diff {weight_diff}")
 
     # The reference for 14b and 14c: one process, B=32, the same seeds.
-    ref = single_steps(torch, conf, MESH_STEPS, device)
-    ref32 = single_steps(torch, conf.replace(precision="float32"), MESH_STEPS, device)
+    ref = single_steps(torch, k1, conf, MESH_STEPS, device)
+    conf32 = conf.replace(precision="float32")
+    ref32 = single_steps(torch, k1, conf32, MESH_STEPS, device)
+    want_f32 = ({B: T, T * B: H_imag}, {"skinny_f32": T, "wide_f32": H_imag})
+    for i, s in enumerate(ref32):
+        if (s["by_rows"], s["by_schedule"]) != want_f32:
+            raise AssertionError(f"[14b] one process, float32 step {i + 1}: K1 launches "
+                                 f"{s['by_rows']} {s['by_schedule']}, expected {want_f32}")
+    ab = f32_step_ab(torch, k1, conf32, device, AB_STEPS)
+    n_ab = len(ab["3xtf32"]) * AB_STEPS
+    for variant, sched in ab["launches"]:
+        want = ({"f32": AB_STEPS * (T + H_imag)} if variant == "ffma"
+                else {"skinny_f32": AB_STEPS * T, "wide_f32": AB_STEPS * H_imag})
+        if sched != want:
+            raise AssertionError(f"[14b] float32 step ({variant}): K1 launches {sched}, "
+                                 f"expected {want}")
+    print(f"[14b] one process, float32 flagship step: single_f32_ms "
+          f"{[round(s['ms'], 2) for s in ref32]} (steps 1-3); in turns "
+          f"after 2 warm-up steps, {AB_STEPS} steps a window: K1 on skinny_f32 / wide_f32 "
+          f"{[round(x, 2) for x in ab['3xtf32']]} ms/step, on the FFMA schedule f32 "
+          f"{[round(x, 2) for x in ab['ffma']]}")
+    path_launches[("skinny_f32", B, H)] = MESH_STEPS * T + n_ab * T
+    path_launches[("wide_f32", T * B, H)] = MESH_STEPS * H_imag + n_ab * H_imag
 
     # 14b. Data parallel: two ranks, B=16 each.
-    k1_rows = {}
-    for M, want in ((B // 2, "skinny"), (T * B // 2, "wide")):
-        res = check_k1(torch, k1, M, In, H, torch.bfloat16, want, gen, device, True, peaks, unfused)
+    for M, want, dtype in ((B // 2, "skinny", torch.bfloat16), (T * B // 2, "wide", torch.bfloat16),
+                           (B // 2, "skinny_f32", torch.float32),
+                           (T * B // 2, "wide_f32", torch.float32)):
+        res = check_k1(torch, k1, M, In, H, dtype, want, gen, device, True, peaks, unfused)
         report["k1"].append(res)
-        k1_rows[M] = res
         print(f"[14b] K1 {want} M={M} H={H}: {k1_summary(res)}")
     dp = spawn_mesh("dp", str(device))
     worst = [compare_steps(r["bf16"]["steps"], ref, MESH_RTOL, f"[14b] rank {r['rank']}")
@@ -1431,16 +1517,19 @@ def mesh_phase(torch, k1, conf, report, path_launches, gen, device, peaks, unfus
     worst32 = [compare_steps(r["f32"]["steps"], ref32, MESH_RTOL_F32,
                              f"[14b] float32 rank {r['rank']}", later=WM_METRICS) for r in dp]
     want_dp = ({B // 2: T, T * B // 2: H_imag}, {"skinny": T, "wide": H_imag})
+    want_dp32 = ({B // 2: T, T * B // 2: H_imag}, {"skinny_f32": T, "wide_f32": H_imag})
     for r in dp:
-        for s in r["bf16"]["steps"]:
-            if (s["by_rows"], s["by_schedule"]) != want_dp:
-                raise AssertionError(f"[14b] rank {r['rank']} K1 launches {s['by_rows']} "
-                                     f"{s['by_schedule']}, expected {want_dp}")
+        for part, want in (("bf16", want_dp), ("f32", want_dp32)):
+            for s in r[part]["steps"]:
+                if (s["by_rows"], s["by_schedule"]) != want:
+                    raise AssertionError(f"[14b] rank {r['rank']} {part} K1 launches "
+                                         f"{s['by_rows']} {s['by_schedule']}, expected {want}")
         if r["bf16"]["state_rows"] != B // 2 or not r["bf16"]["state_finite"]:
             raise AssertionError(f"[14b] rank {r['rank']} out_state rows {r['bf16']['state_rows']}")
     out["14b"] = dict(ms_per_step=[[s["ms"] for s in r["bf16"]["steps"]] for r in dp],
                       f32_ms=[[s["ms"] for s in r["f32"]["steps"]] for r in dp],
                       single_ms=[s["ms"] for s in ref], single_f32_ms=[s["ms"] for s in ref32],
+                      f32_step_ab=ab,
                       rel_diff=worst, rel_diff_f32=worst32,
                       launches=[[s["by_rows"] for s in r["bf16"]["steps"]] for r in dp])
     print(f"[14b] data parallel, 2 ranks on one card: ms/step {out['14b']['ms_per_step']} "
@@ -1453,6 +1542,9 @@ def mesh_phase(torch, k1, conf, report, path_launches, gen, device, peaks, unfus
                                                for s in r["bf16"]["steps"])
     path_launches[("wide", T * B // 2, H)] = sum(s["by_schedule"]["wide"] for r in dp
                                                  for s in r["bf16"]["steps"])
+    for sched, M in (("skinny_f32", B // 2), ("wide_f32", T * B // 2)):
+        path_launches[(sched, M, H)] = sum(s["by_schedule"][sched] for r in dp
+                                           for s in r["f32"]["steps"])
 
     # 14c. Tensor parallel: two ranks, the wide kernels split.
     tp = spawn_mesh("tp", str(device))
@@ -1495,7 +1587,8 @@ def mesh_phase(torch, k1, conf, report, path_launches, gen, device, peaks, unfus
                                            for s in r["bf16"]["steps"])
     path_launches[("wide", T * B, H)] += sum(s["by_schedule"]["wide"] for r in tp
                                              for s in r["bf16"]["steps"])
-    return dict(dp_rank_steps=2 * MESH_STEPS, tp_rank_steps=2 * MESH_STEPS)
+    return dict(dp_rank_steps=2 * MESH_STEPS, tp_rank_steps=2 * MESH_STEPS,
+                f32_steps=MESH_STEPS + n_ab)
 
 
 # Phase 15: learning on the card. The canaries of tests/test_learning.py
@@ -1582,14 +1675,16 @@ def learning_phase(torch, k1, report, path_launches, per_step, gen, device, peak
         proc = subprocess.Popen(cmd, cwd=root, env=env, start_new_session=True,
                                 stdout=log_file, stderr=subprocess.STDOUT)
 
-    # 15a. K1 at the new shapes: f32 at each canary's posterior (M=B), dream
-    # (M=T*B) and acting (M=1) rows; bf16 at the live run's M=32 and M=1536.
+    # 15a. K1 at the new shapes: float32 at each canary's posterior (M=B,
+    # skinny_f32), dream (M=T*B, wide_f32) and acting (M=1, skinny_f32) rows;
+    # bf16 at the live run's M=32 and M=1536.
     shapes = {}
     for name, c in confs.items():
         rows = [c.batch_size, c.batch_length * c.batch_size]
         rows += [1] if name != "gridworld_wm" else []
         for M in rows:
-            shapes[("f32", M, c.hidden_dim, c.deter_dim)] = torch.float32
+            want = "skinny_f32" if M <= k1.SKINNY_MAX_ROWS else "wide_f32"
+            shapes[(want, M, c.hidden_dim, c.deter_dim)] = torch.float32
     T, B = live_conf.batch_length, live_conf.batch_size
     In, H = live_conf.hidden_dim, live_conf.deter_dim
     shapes[("skinny", B, In, H)] = torch.bfloat16
@@ -1615,20 +1710,26 @@ def learning_phase(torch, k1, report, path_launches, per_step, gen, device, peak
         Tc, Bc, Hc = c.batch_length, c.batch_size, c.imag_horizon
         want_rows = {Bc: r["steps"] * Tc, Tc * Bc: r["steps"] * Hc, 1: r["policy_calls"]}
         want_rows = {m: n for m, n in want_rows.items() if n}
+        sched_of = {M: k1.plan(M, c.hidden_dim, c.deter_dim, torch.float32).schedule
+                    for M in want_rows}
+        want_sched = {}
+        for M, n in want_rows.items():
+            want_sched[sched_of[M]] = want_sched.get(sched_of[M], 0) + n
         r.update(launches_by_rows=rows, launches_by_schedule=sched, ok=GATES[name](r))
         out["canaries"][name] = r
         print(f"[15b] {name}: before {r['before']:.4f}, after {r['after']:.4f}, "
               f"{r['steps']} steps, {r['seconds']:.1f} s, {r['policy_calls']} acting calls; "
               f"K1 launches {rows} {sched}; gate {'passed' if r['ok'] else 'FAILED'}")
-        if sched != {"f32": sum(want_rows.values())} or rows != want_rows:
+        if sched != want_sched or rows != want_rows:
             raise AssertionError(f"[15b] {name}: K1 launches {rows} {sched}, expected "
-                                 f"{want_rows}, all f32")
+                                 f"{want_rows} {want_sched}")
         if not math.isfinite(r["metrics"]["loss_model"]) or not r["ok"]:
             raise AssertionError(f"[15b] {name} failed the JAX test's gate: {r}")
         for M, n in rows.items():
-            key = ("f32", M, c.deter_dim)
+            key = (sched_of[M], M, c.deter_dim)
             path_launches[key] = path_launches.get(key, 0) + n
-            per_step[(M, c.deter_dim)] = per_step.get((M, c.deter_dim), 0) + (
+            per_key = (M, c.deter_dim, "float32")
+            per_step[per_key] = per_step.get(per_key, 0) + (
                 r["policy_calls"] if M == 1 else r["steps"])
     shutil.rmtree(scratch)
     torch.cuda.empty_cache()
@@ -1734,17 +1835,21 @@ def finish(torch, report, path_launches, per_step, smi: str, name: str) -> int:
     kernels = []
     for r in report["k1"]:
         n = path_launches.get((r["schedule"], r["M"], r["H"]), 0)
+        steps = per_step.get((r["M"], r["H"]) if r["dtype"] == "bfloat16"
+                             else (r["M"], r["H"], "float32"))
         common = dict(route="cuda", source=K1_SOURCE, replaces=K1_REPLACES, bound_ms=r["bound_ms"],
-                      bound_by=r["bound_by"], plain_ms=r["plain_ms"],
+                      bound_by=r["bound_by"], bound_route=r["bound_route"], plain_ms=r["plain_ms"],
                       library_ms=r["gemm_library_ms"], unfused_ms=r["unfused_ms"])
         kernels.append(dict(name=f"gru_dv2.{r['schedule']}[M={r['M']},H={r['H']},{r['dtype']}]",
-                            launches=n, launches_per_step=n / per_step[(r["M"], r["H"])] if n else 0,
+                            launches=n, launches_per_step=n / steps if n else 0,
                             max_abs_err=r["max_abs_err"], ms=r["ms"], ms_l2_warm=r["ms_l2_warm"],
                             **common))
-        if "generic_ms" in r:
-            kernels.append(dict(name=f"gru_dv2.generic[M={r['M']},H={r['H']},bfloat16]", launches=0,
-                                launches_per_step=0, max_abs_err=r["generic_max_abs_err"],
-                                ms=r["generic_ms"], **common))
+        for first, sched in (("generic", "generic"), ("f32_ffma", "f32")):
+            if f"{first}_ms" in r:  # the dtype's first design at the same shape: no path runs it
+                kernels.append(dict(name=f"gru_dv2.{sched}[M={r['M']},H={r['H']},{r['dtype']}]",
+                                    launches=0, launches_per_step=0,
+                                    max_abs_err=r[f"{first}_max_abs_err"], ms=r[f"{first}_ms"],
+                                    **common))
     marks = sorted(report.pop("phase_start").items(), key=lambda kv: kv[1])
     marks.append(("end", time.perf_counter()))
     report["phase_s"] = {str(a): b_t - a_t for (a, a_t), (_, b_t) in zip(marks, marks[1:])}
@@ -1814,19 +1919,18 @@ def main(argv=None) -> int:
         return finish(torch, report, path_launches, per_step, smi, name)
     for M, H_s, dtype, want in ((B, H, bf16, "skinny"), (T * B, H, bf16, "wide"),
                                 (B, 2048, bf16, "skinny"), (T * B, 2048, bf16, "wide"),
-                                (B, H, f32, "f32"), (T * B, H, f32, "f32")):
+                                (B, H, f32, "skinny_f32"), (T * B, H, f32, "wide_f32"),
+                                (B, 2048, f32, "skinny_f32"), (T * B, 2048, f32, "wide_f32")):
         res = check_k1(torch, k1, M, In, H_s, dtype, want, gen, device, True, peaks, unfused)
         report["k1"].append(res)
-        print(f"[2] K1 {want} M={M} H={H_s} {res['dtype']}: max_abs_err {res['max_abs_err']:.3e}, "
-              f"grads ok, {res['ms']:.5f} ms (L2 warm {res['ms_l2_warm']:.5f}), "
-              f"bound {res['bound_ms']:.5f} ms ({res['bound_by']}, {100 * res['bound_share']:.1f}%), "
-              f"plain {res['plain_ms']:.5f}, gemm_library {res['gemm_library_ms']:.5f}, "
-              f"unfused {res['unfused_ms']:.5f}, generic {res.get('generic_ms', float('nan')):.5f} ms; "
-              f"host {res['call_us']:.1f} us/call (unfused {res['unfused_call_us']:.1f})")
-    for M, In_s, H_s in ((5, 37, 50), (70, 129, 67), (1, 8, 16)):
-        res = check_k1(torch, k1, M, In_s, H_s, bf16, "generic", gen, device, False, peaks)
-        print(f"[2] K1 generic M={M} In={In_s} H={H_s}: max_abs_err {res['max_abs_err']:.3e}, grads ok")
-    # The fused cell under precision: float32 runs K1's f32 schedule.
+        print(f"[2] K1 {want} M={M} H={H_s} {res['dtype']}: {k1_summary(res)}")
+    for M, In_s, H_s, dtype, want in ((5, 37, 50, bf16, "generic"), (70, 129, 67, bf16, "generic"),
+                                      (1, 8, 16, bf16, "generic"), (5, 37, 50, f32, "f32"),
+                                      (70, 129, 67, f32, "f32")):
+        res = check_k1(torch, k1, M, In_s, H_s, dtype, want, gen, device, False, peaks)
+        print(f"[2] K1 {want} M={M} In={In_s} H={H_s} {res['dtype']}: max_abs_err "
+              f"{res['max_abs_err']:.3e}, grads ok")
+    # The fused cell under precision: float32 runs K1's skinny_f32 schedule at M=B.
     cell = make_gru_cell("gru_layernorm_dv2", In, H, dtype=f32).to(device)
     x32, h32 = k1_inputs(torch, B, In, H, gen, device, f32)[:2]
     k1.LAUNCHES.reset()
@@ -1837,7 +1941,8 @@ def main(argv=None) -> int:
     err32 = (out32 - ref32).abs().max().item()
     report["f32_cell"] = dict(max_abs_err=err32, launches=dict(k1.LAUNCHES.by_schedule))
     print(f"[2] gru_layernorm_dv2 cell in float32: {k1.LAUNCHES.by_schedule}, max_abs_err {err32:.3e}")
-    if out32.dtype != f32 or k1.LAUNCHES.by_schedule != {"f32": 1} or not err32 <= FWD_TOL_F32:
+    if (out32.dtype != f32 or k1.LAUNCHES.by_schedule != {"skinny_f32": 1}
+            or not err32 <= FWD_TOL_F32):
         raise AssertionError(f"float32 cell: {out32.dtype}, {k1.LAUNCHES.by_schedule}, err {err32}")
 
     report["phase_start"][3] = time.perf_counter()
@@ -2109,7 +2214,11 @@ def main(argv=None) -> int:
                 (1, Hd): n_calls, (8, Hd): n_calls,
                 (LEARNER["test_batch_size"], H): n_test_calls,
                 (T * LEARNER["test_batch_size"], H): n_test_calls,
-                (1, H): acting_calls[1], (8, H): acting_calls[8]}
+                (1, H): acting_calls[1], (8, H): acting_calls[8],
+                (B, H, "float32"): mesh_steps["f32_steps"],
+                (T * B, H, "float32"): mesh_steps["f32_steps"],
+                (B // 2, H, "float32"): mesh_steps["dp_rank_steps"],
+                (T * B // 2, H, "float32"): mesh_steps["dp_rank_steps"]}
     report["phase_start"][15] = time.perf_counter()
     # 15. Learning on the card: K1 at the new shapes, the canaries through K1,
     #     the live GridWorld run and the run tools.

@@ -13,8 +13,9 @@
 // flagship config In=1000, H=1024 and M=32 (posterior scan, 48 launches a
 // train step) or M=1536 (dream scan, 15 launches a train step).
 //
-// One C entry point, four schedules. The wrapper (ops/gru_dv2.py, plan())
-// picks one from (M, In, H, dtype) alone:
+// One C entry point, six schedules. The wrapper (ops/gru_dv2.py, plan())
+// picks one from (M, In, H, dtype) alone. All six replace the one Pallas
+// kernel _kernel (gru_pallas.py:49-84) and nothing else of JAX:
 //
 // * skinny (bf16, M <= 64, In % 8 == 0, H % 64 == 0). Bound by bytes: at
 //   M=32 the 12.4 MB of bf16 weights must stream from device memory once;
@@ -41,8 +42,37 @@
 //   and ln_gate_kernel finishes, as the split-N design does.
 // * generic (bf16, any other shape, e.g. In=37 or H=50): a WMMA 16x16x16
 //   GEMM with bounds-checked tiles writing f32 gates, then ln_gate_kernel.
-// * f32 (all operands f32): a SIMT FFMA GEMM in full f32 (no TF32), then
-//   ln_gate_kernel. Not tuned: it is off the flagship path.
+// * skinny_f32 (f32, M <= 64, In % 4 == 0, H % 4 == 0). Bound by bytes:
+//   24.9 MB of f32 weights at the flagship shape (0.0076 ms at 3.35 TB/s).
+//   skinny's split-N x split-K design with 16-byte cp.async into a 4-stage
+//   ring of 8 KB f32 tiles and at most 256 weight rows per block, so that
+//   blocks stay small (70 KB at M <= 32) and three fit an SM: 384 blocks at
+//   the flagship shape, all in flight at once. Products in 3xTF32 (below),
+//   partial gates to the workspace, then ln_gate_kernel.
+// * wide_f32 (f32, M > 64, In % 4 == 0, H % 4 == 0). Bound by operations:
+//   19.1 GFLOP at M=1536, which 3xTF32 makes 57.3 GFLOP of TF32 (0.116 ms
+//   at the 495 TFLOP/s dense TF32 rate; 0.285 ms for FFMA at 67 TFLOP/s).
+//   A 128 (or 64) x 96 tile per 8-warp block over a 4-stage cp.async ring of
+//   32-deep slices, mma.sync in 3xTF32, each slice's sums added into f32
+//   totals, f32 gates to the workspace, then ln_gate_kernel (2 x 18.9 MB at
+//   M=1536). Three mma.sync per product, not the split, set its time: with
+//   the split left out, the same tiles take most of it.
+//   Why mma.sync and not wgmma: for .tf32 the PTX ISA takes both wgmma
+//   operands K-major in shared memory (the transpose qualifiers exist for
+//   16-bit types only), and the weights arrive (In, 3H) row-major, MN-major
+//   as B. wgmma would need a K-major copy of the weights, made once per
+//   optimizer step; mma.sync takes B from registers, loaded from the
+//   MN-major tile as it lies.
+// * f32 (f32, any other shape, e.g. In=37 or H=50): a SIMT FFMA GEMM in
+//   full f32, then ln_gate_kernel. The first f32 design: one 64x64 tile per
+//   256-thread block, synchronous scalar loads, kept unchanged for the
+//   shapes the two above do not take.
+//
+// 3xTF32: each f32 operand is split into a TF32 high part and a TF32 low
+// part (rounded as cvt.rna rounds), and three tensor-core products, the two
+// small ones first, sum to close to f32 accuracy (section tf32x3 below). A
+// single TF32 pass keeps ~3 digits, short of the f32 path's 1e-4 tolerance
+// on h'.
 //
 // Plain C interface, loaded with ctypes: the entry returns the CUDA error
 // code of its launches (0 on success; negative codes are explained by
@@ -84,8 +114,7 @@ __device__ __forceinline__ float late_reset(float r, float u, float n, float hv)
 }
 
 // ---------------------------------------------------------------------------
-// LayerNorm + gate pass shared by the skinny, generic, f32 and wide-split
-// schedules: one block per row sums `nsplit` partial gate rows (stride M*3H)
+// LayerNorm + gate pass shared by every schedule but the clustered wide: one block per row sums `nsplit` partial gate rows (stride M*3H)
 // into shared memory, takes mean and variance in two passes (as the
 // reference) and writes h'.
 
@@ -478,6 +507,339 @@ gates_kernel(const bf16* __restrict__ x, const bf16* __restrict__ h,
 }  // namespace skinny
 
 // ---------------------------------------------------------------------------
+// 3xTF32 on the tensor cores, shared by skinny_f32 and wide_f32. Each f32
+// operand v is split into hi = tf32(v) and lo = tf32(v - hi), both rounded
+// to nearest with ties away from zero, as cvt.rna.tf32.f32 rounds; v - hi
+// is exact in f32. Then a.b ~ a_lo.b_hi + a_hi.b_lo + a_hi.b_hi, the two
+// small terms first, into f32 accumulators with mma.sync m16n8k8. What is
+// dropped (a_lo.b_lo and the rounding of lo) is ~2^-22 of each product,
+// near f32's 2^-24. The tensor cores' own sums lose low bits as a chain of
+// products grows, so wide_f32 adds each 32-deep slice into its totals with
+// IEEE f32 adds (an order of magnitude less error at M=1536 than one chain
+// over all of K, for a few per cent of its time); skinny_f32's chains end
+// at kc <= 256 rows anyway.
+//
+// Fragments of m16n8k8.tf32 (g = lane / 4, t = lane % 4): A (16x8, row):
+// a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4); B (8x8, col): b0
+// (k=t, n=g), b1 (k=t+4, n=g); C (16x8): c0, c1 (g, 2t..2t+1), c2, c3
+// (g+8, 2t..2t+1). ldmatrix.x4 over f32 rows (one 16-byte matrix row = 4
+// floats) hands out exactly the A fragment. B comes from an MN-major tile
+// (the weights' own layout) by scalar loads, each tile row padded by 8
+// floats so that the 32 lanes' (k=t, n=g) fall in 32 distinct banks.
+
+namespace tf32x3 {
+
+// cvt.rna.tf32.f32's rounding as two integer operations on the bit pattern
+// (half of the 13 dropped bits' range added to the magnitude, then cleared;
+// a carry moves into the exponent), which issue faster than the cvt. Finite
+// values round as cvt.rna does.
+__device__ __forceinline__ uint32_t to_tf32(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u;
+}
+__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(v);
+  lo = to_tf32(v - __uint_as_float(hi));
+}
+__device__ __forceinline__ void mma_1688(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// acc[m][n] += a[m].b[n] in 3xTF32 over MT x NT tiles of one 8-deep k step:
+// a pass of a_lo.b_hi over all tiles, then a_hi.b_lo, then a_hi.b_hi, the
+// small terms first. Consecutive mma.sync go to different accumulators.
+template <int MT, int NT>
+__device__ __forceinline__ void mma_3x(float (&acc)[MT][NT][4], const uint32_t (&a_hi)[MT][4],
+                                       const uint32_t (&a_lo)[MT][4],
+                                       const uint32_t (&b_hi)[NT][2],
+                                       const uint32_t (&b_lo)[NT][2]) {
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int n = 0; n < NT; ++n) mma_1688(acc[m][n], a_lo[m], b_hi[n][0], b_hi[n][1]);
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int n = 0; n < NT; ++n) mma_1688(acc[m][n], a_hi[m], b_lo[n][0], b_lo[n][1]);
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int n = 0; n < NT; ++n) mma_1688(acc[m][n], a_hi[m], b_hi[n][0], b_hi[n][1]);
+}
+// The A fragment of the 16x8 tile at (row0, k0) of a row-major f32 tile in
+// shared memory (`ld` floats a row, a multiple of 4 that is 4 mod 32, so the
+// eight 16-byte rows of each ldmatrix phase miss no bank), split.
+__device__ __forceinline__ void load_a(uint32_t tile, int ld, int row0, int k0, int lane,
+                                       uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  const int q = lane / 8;
+  const int r = row0 + (q & 1) * 8 + lane % 8;
+  uint32_t a[4];
+  skinny::ldmatrix_x4(tile + (r * ld + k0 + (q >> 1) * 4) * 4, a);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split(__uint_as_float(a[i]), hi[i], lo[i]);
+}
+// The B fragment of the 8x8 tile at (k0, col0) of an MN-major f32 tile in
+// shared memory (`ld` floats a row, 8 mod 32), split.
+__device__ __forceinline__ void load_b(const float* tile, int ld, int k0, int col0, int lane,
+                                       uint32_t (&hi)[2], uint32_t (&lo)[2]) {
+  const float* p = tile + (k0 + lane % 4) * ld + col0 + lane / 4;
+  split(p[0], hi[0], lo[0]);
+  split(p[4 * ld], hi[1], lo[1]);
+}
+// One 16-byte chunk of [x | h] at (row, k) or of [w_ih; w_hh] at (k, n):
+// the K walk crosses from x / w_ih into h / w_hh at k = In, and In % 4 == 0
+// keeps every chunk on one side.
+__device__ __forceinline__ const float* act_chunk(const float* x, const float* h, int In, int H,
+                                                  int row, int k) {
+  return k < In ? x + (size_t)row * In + k : h + (size_t)row * H + (k - In);
+}
+__device__ __forceinline__ const float* weight_chunk(const float* w_ih, const float* w_hh, int In,
+                                                     int N, int k, int n) {
+  return k < In ? w_ih + (size_t)k * N + n : w_hh + (size_t)(k - In) * N + n;
+}
+
+}  // namespace tf32x3
+
+// ---------------------------------------------------------------------------
+// skinny_f32: skinny's split-N x split-K weight streaming in float32 with
+// 3xTF32 products (M <= 64, In % 4 == 0, H % 4 == 0).
+//
+// Block (bx, by): partial gates of columns [64bx, 64bx+64) over rows
+// [by*kc, by*kc+kc) of [w_ih; w_hh] (kc <= 256, a multiple of 32) for all M
+// rows; 4 warps, each 16 of the 64 columns. The activations of the block's
+// K range (MT*16 rows, padded to kc+4 floats) sit in shared memory whole;
+// the weights stream through a 4-stage cp.async ring of 32 x 64 f32 tiles
+// (8 KB each, rows padded to 72 floats). Columns past 3H and rows past K
+// are zero-filled. At the flagship shape 48 x 8 = 384 blocks of 70 KB,
+// three to an SM, all resident at once: 24.9 MB of weights with ~9 MB in
+// flight.
+
+namespace skinny_f32 {
+
+constexpr int BN = 64;       // gate columns per block
+constexpr int BK = 32;       // weight rows per stage
+constexpr int STAGES = 4;
+constexpr int THREADS = 128;
+constexpr int MAX_KC = 256;  // weight rows per block
+constexpr int B_LD = BN + 8;
+constexpr int STAGE_FLOATS = BK * B_LD;
+
+__host__ __device__ constexpr int a_ld(int kc) { return kc + 4; }
+__host__ __device__ constexpr int smem_bytes(int mt, int kc) {
+  return (mt * 16 * a_ld(kc) + STAGES * STAGE_FLOATS) * 4;
+}
+
+template <int MT>
+__global__ void __launch_bounds__(THREADS)
+gates_kernel(const float* __restrict__ x, const float* __restrict__ h,
+             const float* __restrict__ w_ih, const float* __restrict__ w_hh,
+             float* __restrict__ parts, int M, int In, int H, int kc) {
+  using skinny::cp_async16;
+  extern __shared__ __align__(128) float smem_sf[];
+  const int N = 3 * H, K = In + H;
+  const int n0 = blockIdx.x * BN;
+  const int k_begin = blockIdx.y * kc;
+  const int k_end = min(K, k_begin + kc);
+  const int n_stages = (k_end - k_begin + BK - 1) / BK;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int lda = a_ld(kc);
+  const float* b_s = smem_sf + MT * 16 * lda;
+  const uint32_t a_smem = smem_u32(smem_sf);
+  const uint32_t b_smem = smem_u32(b_s);
+
+  // Activations [x | h] of this K range, zero past M and k_end.
+  const int a_chunks = kc / 4;
+  for (int c = tid; c < MT * 16 * a_chunks; c += THREADS) {
+    const int r = c / a_chunks, kl = (c % a_chunks) * 4;
+    const int k = k_begin + kl;
+    const bool ok = r < M && k < k_end;
+    cp_async16(a_smem + (r * lda + kl) * 4, ok ? tf32x3::act_chunk(x, h, In, H, r, k) : x, ok);
+  }
+  auto load_w = [&](int st) {
+    const uint32_t dst = b_smem + (st % STAGES) * STAGE_FLOATS * 4;
+#pragma unroll
+    for (int i = 0; i < BK * BN / 4 / THREADS; ++i) {
+      const int c = tid + i * THREADS;
+      const int r = c / (BN / 4), nl = (c % (BN / 4)) * 4;
+      const int k = k_begin + st * BK + r, n = n0 + nl;
+      const bool ok = k < k_end && n < N;
+      cp_async16(dst + (r * B_LD + nl) * 4,
+                 ok ? tf32x3::weight_chunk(w_ih, w_hh, In, N, k, n) : w_ih, ok);
+    }
+  };
+  // One commit group per stage; the first also carries the activations.
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < n_stages) load_w(st);
+    skinny::cp_async_commit();
+  }
+
+  float acc[MT][2][4] = {};
+  for (int st = 0; st < n_stages; ++st) {
+    skinny::cp_async_wait<STAGES - 2>();  // stage st has landed
+    __syncthreads();                      // ... for every thread; slot (st-1) % STAGES is free
+    if (st + STAGES - 1 < n_stages) load_w(st + STAGES - 1);
+    skinny::cp_async_commit();
+    const float* ws = b_s + (st % STAGES) * STAGE_FLOATS;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 8) {
+      uint32_t b_hi[2][2], b_lo[2][2];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+        tf32x3::load_b(ws, B_LD, kk, warp * 16 + nt * 8, lane, b_hi[nt], b_lo[nt]);
+      uint32_t a_hi[MT][4], a_lo[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        tf32x3::load_a(a_smem, lda, mt * 16, st * BK + kk, lane, a_hi[mt], a_lo[mt]);
+      tf32x3::mma_3x(acc, a_hi, a_lo, b_hi, b_lo);
+    }
+  }
+
+  float* dst = parts + (size_t)blockIdx.y * M * N;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const int col = n0 + warp * 16 + nt * 8 + (lane % 4) * 2;
+      const int r0 = mt * 16 + lane / 4;
+      if (col >= N) continue;
+      if (r0 < M)
+        *reinterpret_cast<float2*>(dst + (size_t)r0 * N + col) =
+            make_float2(acc[mt][nt][0], acc[mt][nt][1]);
+      if (r0 + 8 < M)
+        *reinterpret_cast<float2*>(dst + (size_t)(r0 + 8) * N + col) =
+            make_float2(acc[mt][nt][2], acc[mt][nt][3]);
+    }
+}
+
+}  // namespace skinny_f32
+
+// ---------------------------------------------------------------------------
+// wide_f32: a tiled float32 GEMM with 3xTF32 products for many rows (M > 64,
+// In % 4 == 0, H % 4 == 0), then ln_gate_kernel.
+//
+// Block (bx, by): gates [BM*by, BM*by+BM) x [96bx, 96bx+96) over all of
+// K = In + H. 8 warps in 2 x 4, each BM/2 rows x 24 columns (MT x 3 m16n8
+// tiles). A 4-stage cp.async ring of 32-deep slices: the BM x 32 activation
+// tile (rows padded to 36 floats, read by ldmatrix) and the 32 x 96 weight
+// tile in its own MN-major layout (rows padded to 104 floats, read by scalar
+// loads). Each slice's products start fresh accumulators on the tensor cores
+// and are then added into the block's totals in f32. BM is 128, or 64 when
+// 128-row tiles would give the card fewer than two waves of blocks (M=768:
+// 192 tiles of 128 rows on 132 SMs, 384 of 64). 96 columns make the
+// flagship grid 32 x 12 = 384 blocks of 128 rows, 2.9 waves of one block an
+// SM (128 columns would make 2.2, with 27% of the last wave idle).
+
+namespace wide_f32 {
+
+constexpr int BN = 96;
+constexpr int BK = 32;
+constexpr int STAGES = 4;
+constexpr int THREADS = 256;
+constexpr int WARPS_N = 4;   // warps 2 (rows) x 4 (columns)
+constexpr int NT = 3;        // n8 tiles of a warp: 24 columns
+constexpr int A_LD = BK + 4;
+constexpr int B_LD = BN + 8;
+
+// MT m16 tiles of a warp: BM = 32 * MT rows a block.
+__host__ __device__ constexpr int stage_floats(int mt) { return 32 * mt * A_LD + BK * B_LD; }
+__host__ __device__ constexpr int smem_bytes(int mt) { return STAGES * stage_floats(mt) * 4; }
+
+template <int MT>
+__global__ void __launch_bounds__(THREADS, 1)
+gates_kernel(const float* __restrict__ x, const float* __restrict__ h,
+             const float* __restrict__ w_ih, const float* __restrict__ w_hh,
+             float* __restrict__ gates, int M, int In, int H) {
+  using skinny::cp_async16;
+  constexpr int BM = 32 * MT;
+  constexpr int STAGE_FLOATS = stage_floats(MT);
+  extern __shared__ __align__(128) float smem_wf[];
+  const int N = 3 * H, K = In + H;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int nk = (K + BK - 1) / BK;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
+  const uint32_t base = smem_u32(smem_wf);
+
+  auto load = [&](int kt) {
+    const uint32_t sa = base + (kt % STAGES) * STAGE_FLOATS * 4;
+    const uint32_t sb = sa + BM * A_LD * 4;
+    const int k0 = kt * BK;
+#pragma unroll
+    for (int i = 0; i < BM * BK / 4 / THREADS; ++i) {
+      const int c = tid + i * THREADS;
+      const int r = c / (BK / 4), kl = (c % (BK / 4)) * 4;
+      const int row = m0 + r, k = k0 + kl;
+      const bool ok = row < M && k < K;
+      cp_async16(sa + (r * A_LD + kl) * 4, ok ? tf32x3::act_chunk(x, h, In, H, row, k) : x, ok);
+    }
+#pragma unroll
+    for (int i = 0; i < BK * BN / 4 / THREADS; ++i) {
+      const int c = tid + i * THREADS;
+      const int r = c / (BN / 4), nl = (c % (BN / 4)) * 4;
+      const int k = k0 + r, n = n0 + nl;
+      const bool ok = k < K && n < N;
+      cp_async16(sb + (r * B_LD + nl) * 4,
+                 ok ? tf32x3::weight_chunk(w_ih, w_hh, In, N, k, n) : w_ih, ok);
+    }
+  };
+#pragma unroll
+  for (int kt = 0; kt < STAGES - 1; ++kt) {
+    if (kt < nk) load(kt);
+    skinny::cp_async_commit();
+  }
+
+  float acc[MT][NT][4] = {};
+  for (int kt = 0; kt < nk; ++kt) {
+    skinny::cp_async_wait<STAGES - 2>();  // slice kt has landed
+    __syncthreads();                      // ... for every thread; slot (kt-1) % STAGES is free
+    if (kt + STAGES - 1 < nk) load(kt + STAGES - 1);
+    skinny::cp_async_commit();
+    const uint32_t sa = base + (kt % STAGES) * STAGE_FLOATS * 4;
+    const float* bs = smem_wf + (kt % STAGES) * STAGE_FLOATS + BM * A_LD;
+    float part[MT][NT][4] = {};  // this slice's sums on the tensor cores
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 8) {
+      uint32_t b_hi[NT][2], b_lo[NT][2];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        tf32x3::load_b(bs, B_LD, kk, wn * NT * 8 + nt * 8, lane, b_hi[nt], b_lo[nt]);
+      uint32_t a_hi[MT][4], a_lo[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        tf32x3::load_a(sa, A_LD, wm * MT * 16 + mt * 16, kk, lane, a_hi[mt], a_lo[mt]);
+      tf32x3::mma_3x(part, a_hi, a_lo, b_hi, b_lo);
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[mt][nt][i] += part[mt][nt][i];
+  }
+
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int col = n0 + wn * NT * 8 + nt * 8 + (lane % 4) * 2;
+      const int r0 = m0 + wm * MT * 16 + mt * 16 + lane / 4;
+      if (col >= N) continue;
+      if (r0 < M)
+        *reinterpret_cast<float2*>(gates + (size_t)r0 * N + col) =
+            make_float2(acc[mt][nt][0], acc[mt][nt][1]);
+      if (r0 + 8 < M)
+        *reinterpret_cast<float2*>(gates + (size_t)(r0 + 8) * N + col) =
+            make_float2(acc[mt][nt][2], acc[mt][nt][3]);
+    }
+}
+
+}  // namespace wide_f32
+
+// ---------------------------------------------------------------------------
 // wide: warp-specialised wgmma + TMA for many rows (M > 64, H % 128 == 0).
 //
 // Block (j, i): rows [128i, 128i+128), hidden units [128j, 128j+128) of all
@@ -858,7 +1220,7 @@ gates_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ C
 // Host side.
 
 // Schedules, in the order of ops/gru_dv2.py's SCHEDULES.
-enum Schedule { kGeneric = 0, kSkinny = 1, kWide = 2, kF32 = 3 };
+enum Schedule { kGeneric = 0, kSkinny = 1, kWide = 2, kF32 = 3, kSkinnyF32 = 4, kWideF32 = 5 };
 
 // Error codes of this library beside CUDA's own (see gru_dv2_error_string).
 constexpr int kErrNoEncoder = -1;      // cuTensorMapEncodeTiled not found in libcuda
@@ -949,6 +1311,55 @@ int launch_skinny(const bf16* x, const bf16* h, const bf16* w_ih, const bf16* w_
   return launch_ln_gate(parts, nsplit, h, scale, bias, out, M, H, s);
 }
 
+int launch_skinny_f32(const float* x, const float* h, const float* w_ih, const float* w_hh,
+                      const float* scale, const float* bias, float* parts, float* out, int M,
+                      int In, int H, int nsplit, int kc, cudaStream_t s) {
+  using namespace skinny_f32;
+  const int K = In + H;
+  if (M > 64 || In % 4 != 0 || H % 4 != 0 || kc % BK != 0 || kc > MAX_KC || nsplit < 1 ||
+      (long)nsplit * kc < K || (long)(nsplit - 1) * kc >= K || parts == nullptr)
+    return kErrBadPlan;
+  const int mt = (M + 15) / 16;
+  const int smem = smem_bytes(mt, kc);
+  auto kern = mt == 1 ? gates_kernel<1> : mt == 2 ? gates_kernel<2> : mt == 3 ? gates_kernel<3>
+                                                                               : gates_kernel<4>;
+  const int err = allow_smem((const void*)kern, smem);
+  if (err) return err;
+  kern<<<dim3((3 * H + BN - 1) / BN, nsplit), THREADS, smem, s>>>(x, h, w_ih, w_hh, parts, M, In,
+                                                                  H, kc);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return launch_ln_gate(parts, nsplit, h, scale, bias, out, M, H, s);
+}
+
+// Streaming multiprocessors of the current device.
+int sm_count(int* n) {
+  int dev;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(n, cudaDevAttrMultiProcessorCount, dev);
+  return (int)e;
+}
+
+int launch_wide_f32(const float* x, const float* h, const float* w_ih, const float* w_hh,
+                    const float* scale, const float* bias, float* gates, float* out, int M, int In,
+                    int H, cudaStream_t s) {
+  using namespace wide_f32;
+  if (M <= 64 || In % 4 != 0 || H % 4 != 0 || gates == nullptr) return kErrBadPlan;
+  int sms;
+  int err = sm_count(&sms);
+  if (err) return err;
+  const int col_tiles = (3 * H + BN - 1) / BN;
+  const int mt = (long)((M + 127) / 128) * col_tiles < 2L * sms ? 2 : 4;  // 64 or 128 rows
+  auto kern = mt == 2 ? gates_kernel<2> : gates_kernel<4>;
+  err = allow_smem((const void*)kern, smem_bytes(mt));
+  if (err) return err;
+  kern<<<dim3(col_tiles, (M + 32 * mt - 1) / (32 * mt)), THREADS, smem_bytes(mt), s>>>(
+      x, h, w_ih, w_hh, gates, M, In, H);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return launch_ln_gate(gates, 1, h, scale, bias, out, M, H, s);
+}
+
 template <bool kCluster>
 int launch_wide_kernel(const CUtensorMap (&maps)[4], const bf16* h, const float* scale,
                        const float* bias, float* out, float* gates, int M, int In, int H,
@@ -996,8 +1407,8 @@ int launch_wide(const bf16* x, const bf16* h, const bf16* w_ih, const bf16* w_hh
 }  // namespace k1
 
 // One K1 step on `stream`. `work` is the f32 workspace the schedule needs
-// (see plan() in ops/gru_dv2.py); nsplit and kc are the skinny schedule's
-// K split. Returns 0 or an error code for gru_dv2_error_string.
+// (see plan() in ops/gru_dv2.py); nsplit and kc are the K split of skinny
+// and skinny_f32. Returns 0 or an error code for gru_dv2_error_string.
 extern "C" int gru_dv2_forward(int schedule, const void* x, const void* h, const void* w_ih,
                                const void* w_hh, const void* scale, const void* bias, void* work,
                                void* out, int M, int In, int H, int nsplit, int kc,
@@ -1033,6 +1444,14 @@ extern "C" int gru_dv2_forward(int schedule, const void* x, const void* h, const
       if (e != cudaSuccess) return (int)e;
       return launch_ln_gate(w, 1, hf, sc, bi, o, M, H, s);
     }
+    case kSkinnyF32:
+      return launch_skinny_f32(static_cast<const float*>(x), static_cast<const float*>(h),
+                               static_cast<const float*>(w_ih), static_cast<const float*>(w_hh),
+                               sc, bi, w, o, M, In, H, nsplit, kc, s);
+    case kWideF32:
+      return launch_wide_f32(static_cast<const float*>(x), static_cast<const float*>(h),
+                             static_cast<const float*>(w_ih), static_cast<const float*>(w_hh), sc,
+                             bi, w, o, M, In, H, s);
     default:
       return kErrBadPlan;
   }

@@ -30,7 +30,24 @@ header of ``csrc/gru_dv2.cu`` for what bounds each and how it is built):
   thread-block cluster when H <= 1024, else a LayerNorm/gate pass;
 * ``generic`` - bf16, every other shape: a WMMA GEMM with bounds-checked
   tiles, then the LayerNorm/gate pass;
-* ``f32`` - float32 operands: a full-f32 FFMA GEMM, then the pass.
+* ``skinny_f32`` - f32, M <= 64, In % 4 == 0, H % 4 == 0: ``skinny``'s
+  split-N x split-K weight streaming over 16-byte cp.async, products in
+  3xTF32 on the tensor cores; bound by the f32 weights' bytes (24.9 MB at
+  the flagship shape);
+* ``wide_f32`` - f32, M > 64, In % 4 == 0, H % 4 == 0: a 128 (or 64) x 96
+  tiled GEMM over a 4-stage cp.async ring, 3xTF32 ``mma.sync``, each 32-deep
+  slice added into f32 totals, then the pass; bound by
+  operations (3 x 19.1 GFLOP of TF32 at M=1536). ``wgmma`` takes .tf32
+  operands K-major only, and the weights are MN-major, so it would need a
+  transposed copy of them;
+* ``f32`` - f32, every other shape (e.g. In=37, H=50): the first design, a
+  full-f32 FFMA GEMM, then the pass.
+
+3xTF32 splits each f32 operand v into ``hi = tf32(v)`` and ``lo = tf32(v -
+hi)`` (round to nearest, ties away) and sums ``a_lo.b_hi + a_hi.b_lo +
+a_hi.b_hi`` in f32: close to f32 accuracy, where one TF32 pass keeps about
+three digits (``tests/test_torch_k1_f32_split.py`` emulates it). No
+schedule replaces more of JAX than the Pallas kernel ``_kernel``.
 
 The kernels are built from the repo's source at first use with ``nvcc`` for
 ``sm_90a`` into ``ops/_build/`` (listed in .gitignore) and loaded with ctypes
@@ -63,18 +80,19 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LN_EPS = 1e-3
 
 # In the order of the C side's Schedule enum.
-SCHEDULES = ("generic", "skinny", "wide", "f32")
-SKINNY_MAX_ROWS = 64   # two or four m16 row tiles
+SCHEDULES = ("generic", "skinny", "wide", "f32", "skinny_f32", "wide_f32")
+SKINNY_MAX_ROWS = 64   # at most four m16 row tiles
 SKINNY_MAX_KC = 512    # weight rows per skinny block
+SKINNY_F32_MAX_KC = 256  # weight rows per skinny_f32 block: three blocks to an SM
 WIDE_HB = 128          # hidden units per wide block
 WIDE_MAX_CLUSTER = 8   # blocks of a row tile in one cluster (the portable maximum)
 
 
 @dataclass(frozen=True)
 class Plan:
-    """How one K1 launch runs: its schedule, the skinny schedule's K split
-    (``nsplit`` blocks of ``kc`` rows of [w_ih; w_hh]) and the f32 workspace
-    it needs, in elements."""
+    """How one K1 launch runs: its schedule, the K split of ``skinny`` and
+    ``skinny_f32`` (``nsplit`` blocks of ``kc`` rows of [w_ih; w_hh]) and
+    the f32 workspace it needs, in elements."""
     schedule: str
     nsplit: int = 1
     kc: int = 0
@@ -87,7 +105,9 @@ def pick_schedule(M: int, In: int, H: int, *dtypes: torch.dtype) -> str:
         raise TypeError(f"gru_dv2: x, h, w_ih and w_hh must share one dtype, got {dtypes}")
     dtype = dtypes[0]
     if dtype == torch.float32:
-        return "f32"
+        if In % 4 or H % 4:  # the 16-byte copies of skinny_f32 and wide_f32
+            return "f32"
+        return "skinny_f32" if M <= SKINNY_MAX_ROWS else "wide_f32"
     if dtype != torch.bfloat16:
         raise TypeError(f"gru_dv2: the kernel takes bfloat16 or float32 operands, got {dtype}")
     if In % 8 == 0 and H % 64 == 0 and M <= SKINNY_MAX_ROWS:
@@ -103,9 +123,12 @@ def plan(M: int, In: int, H: int, *dtypes: torch.dtype) -> Plan:
     train step asks for the same few shapes every step."""
     schedule = pick_schedule(M, In, H, *dtypes)
     gates = M * 3 * H
-    if schedule == "skinny":
+    if schedule in ("skinny", "skinny_f32"):
+        # kc: the fewest blocks of at most max_kc rows, evened out, in
+        # multiples of 64 rows (skinny) or of one 32-row ring stage (skinny_f32).
         K = In + H
-        kc = 64 * math.ceil(K / math.ceil(K / SKINNY_MAX_KC) / 64)
+        max_kc, step = (SKINNY_MAX_KC, 64) if schedule == "skinny" else (SKINNY_F32_MAX_KC, 32)
+        kc = step * math.ceil(K / math.ceil(K / max_kc) / step)
         nsplit = math.ceil(K / kc)
         return Plan(schedule, nsplit, kc, nsplit * gates)
     if schedule == "wide":

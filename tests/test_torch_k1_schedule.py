@@ -5,7 +5,8 @@ The picker (``ops/gru_dv2.py::plan``) is plain Python and decides, from
 schedules themselves run only on the card (chip_smoke.py phase 2 holds each
 against the plain version there). The float32 tests show that the fused cell
 under ``precision: float32`` gives what the JAX package gives: on the CPU it
-runs K1's plain version, on the card the ``f32`` schedule.
+runs K1's plain version, on the card ``skinny_f32`` / ``wide_f32`` (or
+``f32`` at shapes those two do not take).
 """
 
 import jax
@@ -37,9 +38,26 @@ BF16, F32 = torch.bfloat16, torch.float32
     (70, 129, 67, BF16, "generic"),
     (1, 8, 16, BF16, "generic"),
     (1536, 1000, 1088, BF16, "generic"),  # H % 128 != 0 for the wide tile
-    (32, 1000, 1024, F32, "f32"),
-    (1536, 1000, 1024, F32, "f32"),
-    (5, 37, 50, F32, "f32"),
+    (32, 1000, 1024, F32, "skinny_f32"),   # flagship in float32 (phases 2 and 14)
+    (1536, 1000, 1024, F32, "wide_f32"),
+    (5, 37, 50, F32, "f32"),               # ragged: In % 4, H % 4
+    (16, 1000, 1024, F32, "skinny_f32"),   # a data rank of 2 (phase 14b)
+    (768, 1000, 1024, F32, "wide_f32"),
+    (32, 1000, 2048, F32, "skinny_f32"),   # the `defaults` width
+    (1536, 1000, 2048, F32, "wide_f32"),
+    (16, 32, 32, F32, "skinny_f32"),       # bandit canary: posterior, dream, acting
+    (128, 32, 32, F32, "wide_f32"),
+    (1, 32, 32, F32, "skinny_f32"),
+    (8, 64, 64, F32, "skinny_f32"),        # GridWorld canaries
+    (80, 64, 64, F32, "wide_f32"),
+    (16, 64, 64, F32, "skinny_f32"),       # point canary
+    (256, 64, 64, F32, "wide_f32"),
+    (1, 64, 64, F32, "skinny_f32"),
+    (64, 1000, 1024, F32, "skinny_f32"),
+    (65, 1000, 1024, F32, "wide_f32"),
+    (70, 129, 67, F32, "f32"),
+    (32, 1002, 1024, F32, "f32"),
+    (1536, 1000, 1022, F32, "f32"),
 ])
 def test_pick_schedule(M, In, H, dtype, want):
     assert k1.pick_schedule(M, In, H, dtype, dtype, dtype, dtype) == want
@@ -65,6 +83,34 @@ def test_skinny_split_covers_k(In, H):
     assert p.workspace == p.nsplit * 32 * 3 * H
 
 
+@pytest.mark.parametrize("M,In,H,nsplit,kc", [
+    (32, 1000, 1024, 8, 256), (16, 1000, 1024, 8, 256), (32, 1000, 2048, 12, 256),
+    (16, 32, 32, 1, 64), (1, 32, 32, 1, 64), (8, 64, 64, 1, 128), (16, 64, 64, 1, 128),
+    (1, 64, 64, 1, 128), (64, 1000, 1024, 8, 256), (33, 36, 20, 1, 64), (3, 4, 4, 1, 32),
+])
+def test_skinny_f32_plans(M, In, H, nsplit, kc):
+    """skinny_f32's K split: blocks of kc rows (one or more 32-row ring stages,
+    at most 256), none empty, covering K = In + H; one partial gate row set
+    per split in the workspace."""
+    p = k1.plan(M, In, H, F32)
+    K = In + H
+    assert (p.schedule, p.nsplit, p.kc) == ("skinny_f32", nsplit, kc)
+    assert p.kc % 32 == 0 and 0 < p.kc <= k1.SKINNY_F32_MAX_KC
+    assert p.nsplit * p.kc >= K > (p.nsplit - 1) * p.kc
+    assert p.workspace == nsplit * M * 3 * H
+
+
+@pytest.mark.parametrize("M,In,H,schedule", [
+    (1536, 1000, 1024, "wide_f32"), (768, 1000, 1024, "wide_f32"),
+    (1536, 1000, 2048, "wide_f32"), (128, 32, 32, "wide_f32"), (80, 64, 64, "wide_f32"),
+    (256, 64, 64, "wide_f32"), (5, 37, 50, "f32"), (70, 129, 67, "f32"),
+])
+def test_unsplit_f32_plans(M, In, H, schedule):
+    """wide_f32 and f32 run the whole K in one block: no split, the f32 gates
+    (M x 3H) in the workspace for the LayerNorm/gate pass."""
+    assert k1.plan(M, In, H, F32) == k1.Plan(schedule, 1, 0, M * 3 * H)
+
+
 def test_flagship_plans():
     """The flagship launches: the skinny grid fills the H100's 132 SMs, its
     partial gates stay under 2 MB, and the wide schedule keeps the gates on
@@ -76,6 +122,10 @@ def test_flagship_plans():
     assert k1.plan(1536, 1000, 1024, BF16).workspace == 0
     assert 1024 // k1.WIDE_HB == k1.WIDE_MAX_CLUSTER
     assert k1.plan(1536, 1000, 2048, BF16).workspace == 1536 * 3 * 2048
+    # float32: skinny_f32's grid (48 column blocks x 8 splits) is 384 blocks,
+    # three to each of the 132 SMs; its partial gates stay under 4 MB.
+    p = k1.plan(32, 1000, 1024, F32)
+    assert 3 * 1024 // 64 * p.nsplit == 384 and p.workspace * 4 <= 4 * 1024 * 1024
 
 
 def test_launch_counter_by_schedule():
