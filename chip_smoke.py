@@ -159,6 +159,25 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
    ``d2_wm_dream`` dump) where PIL is; what a tool would read is kept in
    ``chiprun_out/live_run/`` beside what they wrote. ``--learning-only`` runs
    phases 1 and 15 alone.
+16. The measurement tools of ``pydreamer_tpu_torch/scripts/``, each ``main``
+   run in-process on the card at the flagship width with short counts (2
+   warm-up steps, windows of 1-5): ``bench`` (``gru``), ``bench_gru`` (three
+   cells), ``bench_step_ab`` (``gru`` against ``gru_layernorm_dv2`` in turns),
+   ``profile_step`` under ``gru_layernorm_dv2``, ``bench_dream`` (both cells at
+   M=1536), ``roofline`` at the card's peaks, ``bench_conv --all``,
+   ``scaling_bench`` (one NCCL rank a card).
+   Each line must carry the JAX tool's keys, finite values and the card's
+   name and nvidia-smi line; K1's launches in each tool are set to 0 before
+   it and read after, T ``skinny`` [M=B] a DV2 train step and H ``wide``
+   [M=T*B] a DV2 train step or dream call, exact; ``bench_gru`` reports 48
+   + 15 a step under both DV2 cells and none under ``gru``; ``profile_step``
+   saw kernel records of both schedules; ``roofline``'s K1 bound equals
+   phase 2's. One ``[16] tools summary`` line; details in
+   ``chiprun_out/tools_phase.json``. ``--tools-only`` runs phase 1, phase
+   2's two flagship rows and phase 16 with ``bench_e2e --quick`` (six CPU
+   generator processes: 139 s on an H100's host) and ``scaling_bench
+   --gspmd-overhead`` (a second rank process) as well; the default run has
+   no room for them.
 
 Prints one JSON line of per-kernel numbers (``launches``: the count on the
 path that runs the shape, ``launches_per_step``: per train step or acting
@@ -185,6 +204,9 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+from pydreamer_tpu_torch.scripts.profile_step import profile_step
+from pydreamer_tpu_torch.scripts.roofline import k1_bound_ms, peaks_for
 
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
 
@@ -218,15 +240,6 @@ FLAGSHIP = dict(
 DMC = dict(FLAGSHIP, deter_dim=2048, action_dim=12, kl_weight=1.0, gamma=0.995, entropy=1e-4,
            actor_grad="dynamics", actor_dist="trunc_normal")
 
-# Dense peak rates from NVIDIA's data sheets: (bytes/s, bf16 tensor FLOP/s,
-# fp32 non-tensor FLOP/s, TF32 tensor FLOP/s), at the card's full power
-# limit. TF32 is half the bf16 rate (the data sheets give 495 for the SXM part).
-PEAKS = {
-    "H100 PCIe": (2.0e12, 756e12, 51e12, 378e12),
-    "H100 NVL": (3.9e12, 835e12, 60e12, 417.5e12),
-    "H100": (3.35e12, 989e12, 67e12, 495e12),  # SXM5 (nvidia-smi: "NVIDIA H100 80GB HBM3")
-}
-
 FWD_TOL = 2e-3      # max-abs on h' (|h'| <= ~1), bf16 operands: f32 sums in another order, amplified by LayerNorm
 FWD_TOL_F32 = 1e-4  # max-abs on h', f32 operands: both sides full f32 (TF32 off), sums in another order
 GRAD_TOL = 1e-3     # relative to each gradient's max-abs: backward is the same plain recompute
@@ -238,32 +251,6 @@ GRAD_NORM_RTOL = 5e-2  # the actor's gradient norm, fused vs unfused, through th
 
 K1_SOURCE = "pydreamer_tpu_torch/ops/csrc/gru_dv2.cu"
 K1_REPLACES = "pydreamer_tpu/ops/gru_pallas.py:78"
-
-
-def peaks_for(name: str):
-    for key, peaks in PEAKS.items():
-        if key in name:
-            return key, peaks
-    raise RuntimeError(f"no peak rates known for card {name!r}")
-
-
-def k1_bound_ms(M: int, In: int, H: int, peaks, bf16: bool) -> tuple[float, str, str]:
-    """Least time for one K1 step: each input read once, the output written once;
-    the two products at the bf16 tensor rate (bf16 operands) or, for f32
-    operands at full f32 accuracy, by the faster of two routes: FFMA at the
-    fp32 rate, or 3xTF32 (three TF32 products each) at the TF32 tensor rate;
-    LayerNorm and gates at the fp32 rate. -> (ms, "bytes" or "operations",
-    the route of the products: "bf16", "ffma" or "3xtf32")."""
-    bw, bf16_rate, f32_rate, tf32_rate = peaks
-    elem = 2 if bf16 else 4
-    nbytes = elem * (M * In + M * H + In * 3 * H + H * 3 * H) + 4 * (2 * 3 * H) + 4 * M * H
-    t_bytes = nbytes / bw
-    flops = 2 * M * (In + H) * 3 * H
-    routes = {"bf16": flops / bf16_rate} if bf16 else {"ffma": flops / f32_rate,
-                                                       "3xtf32": 3 * flops / tf32_rate}
-    route = min(routes, key=routes.get)
-    t_ops = routes[route] + M * (8 * 3 * H + 10 * H) / f32_rate
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), route
 
 
 def time_ms(torch, fn, iters: int, flush=None) -> float:
@@ -423,47 +410,6 @@ def make_obs(torch, conf, gen, device, T=None, B=None):
         image=torch.randint(0, 256, (T, B, conf.image_size, conf.image_size, conf.image_channels),
                             generator=gen, device=device, dtype=torch.uint8),
     )
-
-
-def on_device(event) -> bool:
-    """A kernel (or memcpy/memset) event, as opposed to the CPU op that launched it."""
-    return str(event.device_type).endswith("CUDA")
-
-
-def profile_step(torch, k1, ts, obs, state, step):
-    """One TrainStep under torch.profiler: (state, report, key_averages). The
-    report holds K1's launches in the step by the wrapper's count
-    (``launched``) and by the profiler's kernel records (``k1_launches``)."""
-    from torch.profiler import ProfilerActivity, profile
-    k1.LAUNCHES.reset()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state, _, _, _ = ts(obs, state, step)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    launched = dict(k1.LAUNCHES.by_schedule)
-    events = prof.key_averages()
-    attr = "self_device_time_total"
-    dev_events = [e for e in events if on_device(e)]
-    busy_us = sum(getattr(e, attr) for e in dev_events)
-    k1_events = [e for e in dev_events if "k1::" in e.key]  # the .cu's namespace
-    k1_rows = [(e.key, e.count, getattr(e, attr)) for e in k1_events]
-    n_by_kernel = {kind: sum(e.count for e in k1_events if kind in e.key)
-                   for kind in ("skinny::gates_kernel", "wide::gates_kernel", "generic::", "f32::")}
-    ms_by_kernel = {kind: sum(getattr(e, attr) for e in k1_events if kind in e.key) / 1e3
-                    for kind in ("skinny::gates_kernel", "wide::gates_kernel", "ln_gate_kernel")}
-    # K1's backward recomputes the cell through the plain version in float32:
-    # its products are the step's only float32 GEMMs (the model's run in bf16).
-    f32_gemms = [e for e in dev_events if "gemm" in e.key.lower() and "k1::" not in e.key
-                 and ("f32f32" in e.key or "sgemm" in e.key)]
-    report = dict(wall_ms=wall_ms, device_busy_ms=busy_us / 1e3, k1_kernels=k1_rows,
-                  k1_ms=sum(r[2] for r in k1_rows) / 1e3, launched=launched,
-                  k1_launches=n_by_kernel,
-                  k1_ms_by_kernel=ms_by_kernel,
-                  f32_gemm_ms=sum(getattr(e, attr) for e in f32_gemms) / 1e3,
-                  f32_gemm_calls=sum(e.count for e in f32_gemms),
-                  f32_gemm_kernels=sorted({e.key for e in f32_gemms}))
-    return state, report, events
 
 
 def check_profiled_k1(prof, T: int, H_imag: int, what: str) -> None:
@@ -1079,7 +1025,7 @@ def probe_phase(torch, k1, report, gen, device):
     k1.LAUNCHES.reset()
     counted, state, metrics = step_times(torch, ts, obs, state, 1, first_step=4)
     rows, sched = dict(k1.LAUNCHES.by_rows), dict(k1.LAUNCHES.by_schedule)
-    state, prof, _ = profile_step(torch, k1, ts, obs, state, 5)
+    state, prof, _ = profile_step(ts, obs, state, 5)
     check_profiled_k1(prof, T, H_imag, "[13a] profiled step")
     vals = finite_metrics(metrics, PROBE_METRICS + ("loss_model", "loss_probe", "grad_norm"),
                           "[13a] Dreamer map+goals")
@@ -1135,7 +1081,7 @@ def probe_phase(torch, k1, report, gen, device):
         state0 = bmodel.init_state(B)
         times, state, metrics = step_times(torch, bts, obs, state0, 3)
         n_k1 = k1.LAUNCHES.count
-        state, prof, _ = profile_step(torch, k1, bts, obs, state, 4)
+        state, prof, _ = profile_step(bts, obs, state, 4)
         vals = finite_metrics(metrics, ("loss_model", "loss_probe", "grad_norm", "grad_norm_probe")
                               + PROBE_METRICS[:4], f"[13b] {name}")
         res = out[name] = dict(ms=times, median_ms=sorted(times)[1], k1_launches=n_k1,
@@ -1828,6 +1774,176 @@ def learning_phase(torch, k1, report, path_launches, per_step, gen, device, peak
     print(f"[15] phase 15 took {out['seconds']:.1f} s (15c ran beside 15a and 15b)")
 
 
+# Phase 16's short step counts: the tools' defaults (bench's 10 + 2 x 50
+# steps, bench_gru's three cells, ...) would take minutes at the flagship width,
+# and the phase must leave the whole script well inside its 1200 s.
+TOOL_STEPS = dict(warmup=2, steps=3)
+DV2 = "gru_layernorm_dv2"
+
+
+def _finite(x) -> bool:
+    """Every number in a tool's line finite (None: not measured on this path)."""
+    if isinstance(x, dict):
+        return all(_finite(v) for v in x.values())
+    if isinstance(x, list):
+        return all(_finite(v) for v in x)
+    return x is None or isinstance(x, str) or math.isfinite(x)
+
+
+def tools_phase(torch, k1, report, path_launches, per_step, peaks, smi: str,
+                with_e2e: bool) -> None:
+    """Phase 16: the measurement tools of ``pydreamer_tpu_torch/scripts/``, each
+    ``main(argv)`` in-process on the card at the flagship width with short
+    step counts. Checks each line's keys, its card provenance and finite
+    values, K1's launches per step of ``bench_gru`` (exact, by cell), that
+    ``profile_step`` saw kernels of both K1 schedules, and that ``roofline``'s
+    K1 bound is phase 2's. K1's launches in the phase are counted by rows
+    (each tool's own, set to 0 before it and read after) and added to the
+    flagship rows (``skinny`` M=32, ``wide`` M=1536)."""
+    from pydreamer_tpu_torch.scripts import (bench, bench_conv, bench_dream, bench_e2e, bench_gru,
+                                             bench_step_ab, flagship, roofline, scaling_bench)
+    from pydreamer_tpu_torch.scripts import profile_step as profile_tool
+
+    conf = flagship.make_conf()
+    T, B, H_imag, In, H = (conf.batch_length, conf.batch_size, conf.imag_horizon,
+                           conf.hidden_dim, conf.deter_dim)
+    w, n = TOOL_STEPS["warmup"], TOOL_STEPS["steps"]
+    out = report["tools"] = {"seconds": {}}
+    name = torch.cuda.get_device_name(0)
+    dv2_steps = dream_calls = 0
+
+    def run(tool, argv, keys, steps=0, dreams=0, label=None):
+        """One tool's main(argv): its lines checked, K1's launches in it
+        exactly T a train step under a DV2 cell at M=B and H a train step or
+        dream call at M=T*B."""
+        nonlocal dv2_steps, dream_calls
+        k1.LAUNCHES.reset()
+        t0 = time.perf_counter()
+        argv = [str(a) for a in argv]
+        got = tool.main(["--device", "cuda", *argv] if tool is not roofline else argv)
+        out["seconds"][label or tool.__name__.rsplit(".", 1)[-1]] = time.perf_counter() - t0
+        lines = got if isinstance(got, list) else [got]
+        for line, want in zip(lines, keys):
+            if not want <= set(line) or not _finite(line):
+                raise AssertionError(f"{tool.__name__}: line {line} lacks {want - set(line)} "
+                                     "or holds a non-finite number")
+            if tool is not roofline and (line["device"] != name or line["nvidia_smi"] != smi):
+                raise AssertionError(f"{tool.__name__}: provenance {line['device']!r} "
+                                     f"{line['nvidia_smi']!r}, the card is {smi!r}")
+        want_rows = {m: c for m, c in ((B, T * steps), (T * B, H_imag * (steps + dreams))) if c}
+        if dict(k1.LAUNCHES.by_rows) != want_rows or k1.LAUNCHES.count != sum(want_rows.values()):
+            raise AssertionError(f"{tool.__name__}: K1 launches {k1.LAUNCHES.by_rows} "
+                                 f"{k1.LAUNCHES.by_schedule}, expected {want_rows}")
+        dv2_steps += steps
+        dream_calls += dreams
+        return got
+
+    line = run(bench, ["--warmup", w, "--steps", 5],
+               [{"metric", "value", "unit", "vs_baseline", "provenance"}])
+    out["bench"] = line
+    print(f"[16] bench (gru): {line['value']:.4f} steps/s, {1e3 / line['value']:.2f} ms/step; "
+          f"provenance {line['provenance']}")
+
+    gru_lines = run(bench_gru, ["--warmup", w, "--steps", 2],
+                    [{"gru_type", "steps_per_sec", "ms_per_step", "loss_model"}] * 3,
+                    steps=2 * (w + 2 * 2))
+    out["bench_gru"] = gru_lines
+    for line in gru_lines:
+        want = {} if line["gru_type"] == "gru" else {"skinny": T, "wide": H_imag}
+        if line["k1_launches_per_step"] != want:
+            raise AssertionError(f"bench_gru {line['gru_type']}: K1 launches a step "
+                                 f"{line['k1_launches_per_step']}, expected {want}")
+    print("[16] bench_gru: " + "; ".join(
+        f"{x['gru_type']} {x['ms_per_step']:.2f} ms/step, K1 a step {x['k1_launches_per_step']}"
+        for x in gru_lines))
+
+    line = run(bench_step_ab, ["--a", "auto:auto", "--b", f"auto:auto:gru_type={DV2}",
+                               "--rounds", 2, "--n", n, "--warmup", w],
+               [{"a", "b", "a_steps_per_sec", "b_steps_per_sec", "a_median", "b_median",
+                 "b_vs_a"}], steps=w + 2 * n)
+    out["bench_step_ab"] = line
+    print(f"[16] bench_step_ab gru / {DV2} in turns: {line['a_steps_per_sec']} / "
+          f"{line['b_steps_per_sec']} steps/s, b_vs_a {line['b_vs_a']:.4f}")
+
+    line = run(profile_tool, ["--gru_type", DV2, "--warmup", w, "--steps", 1, "--top", 15],
+               [{"wall_ms_per_step", "device_busy_ms_per_step", "rows", "k1"}], steps=w + 1)
+    out["profile_step"] = line
+    seen = line["k1"]
+    for sched, per in (("skinny", T), ("wide", H_imag)):
+        r = seen.get(sched, {})
+        if r.get("launches_per_step") != per or not 0 < r.get("recorded_per_step", 0) <= per:
+            raise AssertionError(f"profile_step: K1 {sched} {r}, expected {per} launches a step "
+                                 "and kernel records of it")
+    print(f"[16] profile_step ({DV2}): wall {line['wall_ms_per_step']:.2f} ms/step, busy "
+          f"{line['device_busy_ms_per_step']:.2f} ({100 * line['busy_share']:.1f}%); K1 {seen}")
+
+    lines = run(bench_dream, ["--steps", 10, "--gru_type", "gru", DV2],
+                [{"metric", "value", "unit", "M", "H"}] * 2, dreams=1 + 10)
+    out["bench_dream"] = lines
+    if lines[1]["k1_launches_per_call"] != {"wide": H_imag} or lines[0]["k1_launches_per_call"]:
+        raise AssertionError(f"bench_dream K1 launches a call: {lines[0]['k1_launches_per_call']}, "
+                             f"{lines[1]['k1_launches_per_call']}")
+    print(f"[16] bench_dream M={lines[0]['M']} H={lines[0]['H']}: gru {lines[0]['value']:.3f} ms, "
+          f"{DV2} {lines[1]['value']:.3f} ms (K1 {lines[1]['k1_launches_per_call']} a call)")
+
+    rows = run(roofline, [], [{"conv_pair", "dream_scan", "rssm_fwd_scan", "dims"}])
+    out["roofline"] = rows
+    for M, sched in ((B, "skinny"), (T * B, "wide")):
+        bound = roofline.k1_bound_ms(M, In, H, peaks, True)[0]
+        used = [r["bound_ms"] for r in report["k1"] if (r["schedule"], r["M"], r["H"], r["dtype"])
+                == (sched, M, H, "bfloat16")]
+        if used != [bound]:
+            raise AssertionError(f"roofline K1 bound {sched} M={M}: {bound} ms, phase 2: {used}")
+    print(f"[16] roofline at the card's peaks: dream scan {rows['dream_scan']}, conv totals "
+          f"{rows['conv_pair']['totals']}; K1 bounds as phase 2's")
+
+    line = run(bench_conv, ["--all", "--n", 10, "--warmup", 3], [{"M", "cnn_depth", "layers",
+                                                                  "stacks"}])
+    out["bench_conv"] = line
+    print("[16] bench_conv fwd+bwd ms (floor): " + ", ".join(
+        f"{k} {v['fwdbwd_ms']:.3f} ({v['floor_fwdbwd_ms']:.3f})" for k, v in line["layers"].items())
+        + "; stacks " + ", ".join(f"{k} {v['fwdbwd_ms']:.3f}" for k, v in line["stacks"].items()))
+
+    lines = run(scaling_bench, ["--steps", n, "--warmup", w],
+                [{"n_devices", "global_batch", "steps_per_sec", "weak_scaling_efficiency"},
+                 {"metric", "value", "unit", "sizes"}])
+    out["scaling_bench"] = lines
+    print(f"[16] scaling_bench: {lines[0]['steps_per_sec']:.4f} steps/s on 1 rank (sizes "
+          f"{lines[-1]['sizes']})")
+
+    if with_e2e:
+        over = run(scaling_bench, ["--gspmd-overhead", "--steps", n, "--warmup", w],
+                   [{"mode", "steps_per_sec"}] * 2
+                   + [{"plain", "gspmd_1dev", "gspmd_overhead_pct"}],
+                   label="scaling_bench_overhead")
+        out["scaling_bench_overhead"] = over
+        print(f"[16] scaling_bench --gspmd-overhead: plain {over[-1]['plain']:.4f} vs 1-rank "
+              f"mesh {over[-1]['gspmd_1dev']:.4f} steps/s ({over[-1]['gspmd_overhead_pct']:.2f}%)")
+        line = run(bench_e2e, ["--quick", "--warmup", w, "--steps", 5],
+                   [{"metric", "value", "unit", "vs_baseline", "extra", "host_breakdown"}])
+        out["bench_e2e"] = line
+        print(f"[16] bench_e2e --quick: pipeline {line['value']:.4f} steps/s; extra "
+              f"{line['extra']}; host {line['host_breakdown']}")
+
+    path_launches[("skinny", B, H)] = path_launches.get(("skinny", B, H), 0) + T * dv2_steps
+    path_launches[("wide", T * B, H)] = (path_launches.get(("wide", T * B, H), 0)
+                                         + H_imag * (dv2_steps + dream_calls))
+    per_step[(B, H)] = per_step.get((B, H), 0) + dv2_steps
+    per_step[(T * B, H)] = per_step.get((T * B, H), 0) + dv2_steps + dream_calls
+    (OUT_DIR / "tools_phase.json").write_text(json.dumps(out, indent=1))
+    summary = dict(card=smi, seconds=out["seconds"], bench_steps_per_sec=out["bench"]["value"],
+                   bench_gru_ms_per_step={x["gru_type"]: x["ms_per_step"] for x in gru_lines},
+                   step_ab_b_vs_a=out["bench_step_ab"]["b_vs_a"],
+                   profile_busy_share=out["profile_step"]["busy_share"],
+                   dream_ms={x["metric"]: x["value"] for x in out["bench_dream"][:2]},
+                   k1_train_steps=dv2_steps, k1_dream_calls=dream_calls)
+    if with_e2e:
+        summary.update(gspmd_overhead_pct=out["scaling_bench_overhead"][-1]["gspmd_overhead_pct"],
+                       e2e_pipeline_steps_per_sec=out["bench_e2e"]["value"])
+    print("[16] tools summary: " + json.dumps(summary))
+
+
+
 def finish(torch, report, path_launches, per_step, smi: str, name: str) -> int:
     """The kernels line (one entry per timed K1 row: its launches on the path
     that runs its shape, per train step or acting call), the nvidia-smi line
@@ -1865,8 +1981,9 @@ def finish(torch, report, path_launches, per_step, smi: str, name: str) -> int:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if argv not in ([], ["--learning-only"]):
-        print("usage: chip_smoke.py [--learning-only]  (phases 1 and 15 alone)", file=sys.stderr)
+    if argv not in ([], ["--learning-only"], ["--tools-only"]):
+        print("usage: chip_smoke.py [--learning-only | --tools-only]  (phases 1 and 15 alone; "
+              "phases 1, 2 at the flagship shapes, and 16 with bench_e2e)", file=sys.stderr)
         return 2
     import torch
     if not torch.cuda.is_available():
@@ -1912,10 +2029,19 @@ def main(argv=None) -> int:
     bf16, f32 = torch.bfloat16, torch.float32
     unfused = unfused_cell(torch, layer_norm)
     report["k1"] = []
-    if argv:
+    if argv == ["--learning-only"]:
         report["phase_start"][15] = report["phase_start"].pop(2)
         path_launches, per_step = {}, {}
         learning_phase(torch, k1, report, path_launches, per_step, gen, device, peaks, unfused)
+        return finish(torch, report, path_launches, per_step, smi, name)
+    if argv == ["--tools-only"]:
+        for M, want in ((B, "skinny"), (T * B, "wide")):
+            res = check_k1(torch, k1, M, In, H, bf16, want, gen, device, True, peaks, unfused)
+            report["k1"].append(res)
+            print(f"[2] K1 {want} M={M} H={H} {res['dtype']}: {k1_summary(res)}")
+        report["phase_start"][16] = time.perf_counter()
+        path_launches, per_step = {}, {}
+        tools_phase(torch, k1, report, path_launches, per_step, peaks, smi, with_e2e=True)
         return finish(torch, report, path_launches, per_step, smi, name)
     for M, H_s, dtype, want in ((B, H, bf16, "skinny"), (T * B, H, bf16, "wide"),
                                 (B, 2048, bf16, "skinny"), (T * B, 2048, bf16, "wide"),
@@ -1992,7 +2118,7 @@ def main(argv=None) -> int:
 
     report["phase_start"][5] = time.perf_counter()
     # 5. Profile one step.
-    state, prof5, events = profile_step(torch, k1, ts, obs, state, step + 1)
+    state, prof5, events = profile_step(ts, obs, state, step + 1)
     report["profile"] = prof5
     table = events.table(sort_by="self_device_time_total", row_limit=30)
     print(f"[5] profiled step: wall {prof5['wall_ms']:.2f} ms, device busy "
@@ -2130,7 +2256,7 @@ def main(argv=None) -> int:
         raise AssertionError("log step: non-finite dream tensors or metrics")
 
     # Profile one step.
-    dstate, prof9, events9 = profile_step(torch, k1, dts, dobs, dstate, dstep + 1)
+    dstate, prof9, events9 = profile_step(dts, dobs, dstate, dstep + 1)
     dstep += 1
     report["dmc"]["profile"] = prof9
     print(f"[9] profiled DMC step: wall {prof9['wall_ms']:.2f} ms, device busy "
@@ -2223,6 +2349,10 @@ def main(argv=None) -> int:
     # 15. Learning on the card: K1 at the new shapes, the canaries through K1,
     #     the live GridWorld run and the run tools.
     learning_phase(torch, k1, report, path_launches, per_step, gen, device, peaks, unfused)
+
+    report["phase_start"][16] = time.perf_counter()
+    # 16. The measurement tools at the flagship width (bench_e2e under --tools-only).
+    tools_phase(torch, k1, report, path_launches, per_step, peaks, smi, with_e2e=False)
     return finish(torch, report, path_launches, per_step, smi, name)
 
 

@@ -10,4 +10,6 @@ when there is no card unless the caller asks for ``"cpu"``
 (:func:`pydreamer_tpu_torch.device.resolve_device`).
 """
 
+__version__ = "0.1.0"
+
 __all__ = ["conf", "convert", "device", "models", "ops", "parallel", "training"]

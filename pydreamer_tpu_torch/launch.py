@@ -17,10 +17,12 @@ the mesh (``learner_ranks``): ``mesh_data * mesh_model`` ranks over the
 job's nodes when both are given, every visible card when ``mesh_data`` is 0,
 and one rank, with no process group, when there is no card or under
 ``debug`` (``mesh_data: 1``). Each rank gets torch's environment
-(``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``,
-``LOCAL_WORLD_SIZE``); a multi-node job sets ``NNODES``, ``NODE_RANK``,
-``MASTER_ADDR`` and ``MASTER_PORT`` (torch's names), else the launcher uses
-one node, ``127.0.0.1`` and a free port. Generators start once per host. The
+(``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``); a
+multi-node job sets ``NNODES``, ``NODE_RANK``, ``MASTER_ADDR`` and
+``MASTER_PORT`` (torch's names) and its ranks meet there. On one node the
+ranks meet through a new file in the run directory
+(``multihost.INIT_FILE_ENV``): a free port chosen here could be taken by
+another process before rank 0 binds it. Generators start once per host. The
 watchdog covers every rank; the ranks recycle together (the trainer decides
 it unanimously) and the launcher relaunches all of them.
 
@@ -49,14 +51,16 @@ import json
 import multiprocessing as mp
 import os
 import signal
-import socket
 import sys
 import time
+import uuid
+from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from .conf import parse_args
+from .parallel.multihost import INIT_FILE_ENV
 from .tools import configure_logging, logger, print_once
 from .tracking import init_run
 
@@ -114,23 +118,23 @@ def learner_ranks(conf) -> int:
     return max(torch.cuda.device_count(), 1)
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def rank_environments(n_local: int) -> List[Dict[str, str]]:
+def rank_environments(n_local: int, store_dir) -> List[Dict[str, str]]:
     """torch's environment for each of this host's ``n_local`` ranks, or one
-    empty environment (no process group) for a lone rank on one node."""
+    empty environment (no process group) for a lone rank on one node. On one
+    node the ranks meet through a new file in ``store_dir``; across nodes at
+    ``MASTER_ADDR:MASTER_PORT``, which the job sets."""
     nnodes = int(os.environ.get("NNODES", "1"))
     if n_local == 1 and nnodes == 1:
         return [{}]
     node = int(os.environ.get("NODE_RANK", "0"))
-    common = dict(MASTER_ADDR=os.environ.get("MASTER_ADDR", "127.0.0.1"),
-                  MASTER_PORT=os.environ.get("MASTER_PORT", str(_free_port())),
-                  WORLD_SIZE=str(nnodes * n_local), LOCAL_WORLD_SIZE=str(n_local),
+    common = dict(WORLD_SIZE=str(nnodes * n_local), LOCAL_WORLD_SIZE=str(n_local),
                   NNODES=str(nnodes), NODE_RANK=str(node))
+    if nnodes == 1:
+        common[INIT_FILE_ENV] = str(Path(store_dir).resolve() / f"dist_store_{uuid.uuid4().hex}")
+    elif not ("MASTER_ADDR" in os.environ and "MASTER_PORT" in os.environ):
+        raise ValueError(f"NNODES={nnodes}: set MASTER_ADDR and MASTER_PORT to rank 0's host")
+    else:
+        common.update(MASTER_ADDR=os.environ["MASTER_ADDR"], MASTER_PORT=os.environ["MASTER_PORT"])
     return [dict(common, RANK=str(node * n_local + i), LOCAL_RANK=str(i))
             for i in range(n_local)]
 
@@ -223,7 +227,7 @@ def launch(argv: Optional[List[str]] = None, config_dir: str = "./config"):
     # Learner: one process per rank of this host.
     def start_learners() -> List[mp.Process]:
         procs = []
-        for env in rank_environments(n_ranks):
+        for env in rank_environments(n_ranks, artifact_dir):
             logger.info("Launching learner%s", f" rank {env['RANK']}" if env else "")
             p = ctx.Process(target=_learner_entry, daemon=False,
                             args=(conf, str(artifact_dir), num_threads, env))

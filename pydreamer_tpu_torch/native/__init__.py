@@ -119,12 +119,13 @@ def _np_load(path) -> Dict[str, np.ndarray]:
         return {k: npz[k] for k in npz.files}
 
 
-def load_npz(path) -> Dict[str, np.ndarray]:
-    """Load an npz with parallel native inflate (one thread per entry, at
-    most cpu_count-1); np.load where the native reader is unavailable or
-    rejects the file. Episode files are dominated by one big image entry
-    (one zlib stream, not splittable), so extra threads only help
-    multi-entry files.
+def load_npz(path, nthreads: Optional[int] = None) -> Dict[str, np.ndarray]:
+    """Load an npz with parallel native inflate; np.load where the native
+    reader is unavailable or rejects the file.
+
+    ``nthreads=None`` takes one thread per entry, at most cpu_count-1.
+    Episode files are dominated by one big image entry (one zlib stream, not
+    splittable), so extra threads only help multi-entry files.
     """
     lib = _get_lib()
     if lib is None:
@@ -140,7 +141,9 @@ def load_npz(path) -> Dict[str, np.ndarray]:
         ptrs = (ctypes.c_void_p * n)(*[
             ctypes.cast((ctypes.c_char * len(b)).from_buffer(b), ctypes.c_void_p)
             for b in bufs])
-        rc = lib.npz_read_all(handle, ptrs, max(1, min(n, (os.cpu_count() or 2) - 1)))
+        if nthreads is None:
+            nthreads = max(1, min(n, (os.cpu_count() or 2) - 1))
+        rc = lib.npz_read_all(handle, ptrs, nthreads)
         if rc != 0:
             logger.warning("Native npz read failed rc=%d for %s; using np.load", rc, path)
             return _np_load(path)

@@ -7,9 +7,13 @@ ranks:
 
   * ``maybe_initialize_distributed()`` initializes ``torch.distributed`` from
     torch's standard environment (``MASTER_ADDR``, ``MASTER_PORT``,
-    ``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``, as ``torchrun`` and the port's
-    launcher set them), in place of JAX's ``JAX_COORDINATOR_ADDRESS`` /
-    ``JAX_NUM_PROCESSES`` / ``JAX_PROCESS_ID``. It initializes at
+    ``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``, as ``torchrun`` sets them), in
+    place of JAX's ``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` /
+    ``JAX_PROCESS_ID``. Ranks on one host may meet through a file instead of
+    a TCP port: ``PYDREAMER_DIST_INIT_FILE`` names a new file that every rank
+    can reach (torch's ``file://`` rendezvous). That needs no free port, so no
+    other process can take the address between its choice and its use; the
+    port's launcher does so on one node. It initializes at
     ``WORLD_SIZE=1`` too, so the distributed path runs on a single card. On the
     card the backend is ``cpu:gloo,cuda:nccl``: host tensors (the replay
     counts, the stop decisions) go through gloo and the gradients through NCCL;
@@ -33,13 +37,16 @@ import torch.distributed as dist
 
 from ..tools import logger
 
-__all__ = ["maybe_initialize_distributed", "is_main_process", "rank", "world_size",
-           "local_rank", "local_world_size", "local_batch_size", "global_sum", "global_any",
-           "COLLECTIVE_TIMEOUT"]
+__all__ = ["maybe_initialize_distributed", "INIT_FILE_ENV", "is_main_process", "rank",
+           "world_size", "local_rank", "local_world_size", "local_batch_size", "global_sum",
+           "global_any", "COLLECTIVE_TIMEOUT"]
 
 # Ranks wait at their next collective while rank 0 alone writes a checkpoint
 # or runs the eval protocol: the timeout must outlast an eval at full width.
 COLLECTIVE_TIMEOUT = timedelta(minutes=30)
+
+# Names a file for the ranks' rendezvous in place of MASTER_ADDR / MASTER_PORT.
+INIT_FILE_ENV = "PYDREAMER_DIST_INIT_FILE"
 
 
 def maybe_initialize_distributed(device_type: str = "cuda") -> bool:
@@ -60,7 +67,11 @@ def maybe_initialize_distributed(device_type: str = "cuda") -> bool:
         backend = "cpu:gloo,cuda:nccl"
     else:
         backend = "gloo"
-    dist.init_process_group(backend=backend, init_method="env://", timeout=COLLECTIVE_TIMEOUT)
+    init_file = os.environ.get(INIT_FILE_ENV)
+    dist.init_process_group(backend=backend,
+                            init_method=f"file://{init_file}" if init_file else "env://",
+                            world_size=int(os.environ["WORLD_SIZE"]),
+                            rank=int(os.environ["RANK"]), timeout=COLLECTIVE_TIMEOUT)
     logger.info("Distributed: rank %d/%d (local rank %d), backend %s", rank(), world_size(),
                 local_rank(), backend)
     return True

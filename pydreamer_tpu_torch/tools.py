@@ -2,7 +2,8 @@
 
 Counterpart of ``pydreamer_tpu/tools.py``: colored per-process log
 prefixes, ``print_once`` dedup, ``Timer`` phase timings reported as
-``timer_*`` metrics and ``discount`` (the generators' discounted return).
+``timer_*`` metrics, ``discount`` (the generators' discounted return) and
+the null profiler ``NoProfiler``.
 The JAX package's persistent compilation cache
 (``enable_persistent_compilation_cache``, which the JAX generator enables at
 start) is a cache of XLA executables and has no counterpart here: eager
@@ -20,7 +21,7 @@ from typing import Dict, Optional
 import numpy as np
 
 __all__ = ["logger", "configure_logging", "print_once", "Timer", "timers_summary",
-           "discount", "LogColorFormatter"]
+           "discount", "NoProfiler", "LogColorFormatter"]
 
 logger = logging.getLogger("pydreamer_tpu_torch")
 
@@ -79,12 +80,14 @@ class Timer:
     Samples accumulate in a class-level registry keyed by name, so
     ``with Timer("step"):`` constructed fresh every loop iteration keeps
     appending to the same series until ``timers_summary(reset=True)`` drains it.
+    ``verbose`` logs each sample at debug level.
     """
 
     registry: Dict[str, list] = {}
 
-    def __init__(self, name: str = "timer"):
+    def __init__(self, name: str = "timer", verbose: bool = False):
         self.name = name
+        self.verbose = verbose
         self.start_time: Optional[float] = None
 
     def __enter__(self):
@@ -94,7 +97,22 @@ class Timer:
     def __exit__(self, *exc):
         dt = time.time() - self.start_time  # type: ignore
         Timer.registry.setdefault(self.name, []).append(dt)
+        if self.verbose:
+            logger.debug("%s: %.1f ms", self.name, dt * 1000)
         return False
+
+    @property
+    def times(self) -> list:
+        """This name's samples (seconds) since the last reset."""
+        return Timer.registry.get(self.name, [])
+
+    @property
+    def dt_mean(self) -> float:
+        """Mean of ``times``; 0.0 without a sample."""
+        return float(np.mean(self.times)) if self.times else 0.0
+
+    def reset(self):
+        Timer.registry[self.name] = []
 
 
 def timers_summary(reset: bool = True) -> Dict[str, float]:
@@ -113,3 +131,16 @@ def discount(x: np.ndarray, gamma: float) -> np.ndarray:
     """Discounted cumulative sums along axis 0 (reference: tools.py:226-228)."""
     import scipy.signal
     return scipy.signal.lfilter([1.0], [1.0, -gamma], x[::-1], axis=0)[::-1]
+
+
+class NoProfiler:
+    """Null profiler (reference: tools.py:258-266)."""
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def step(self):
+        pass

@@ -27,8 +27,8 @@ print(json.dumps({"imported": names, "modules": sorted(sys.modules)}))
 
 
 def test_port_imports_no_jax_and_no_jax_package():
-    """Import the package and every submodule, the run tools of ``scripts/``
-    included, in a fresh interpreter (this process has JAX loaded already) and
+    """Import the package and every submodule, the run and measurement tools
+    of ``scripts/`` included, in a fresh interpreter (this process has JAX loaded already) and
     inspect sys.modules: no JAX, no JAX package, nothing of ``tests/``."""
     proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
@@ -45,10 +45,13 @@ def test_port_imports_no_jax_and_no_jax_package():
             "pydreamer_tpu_torch.scripts.export_metrics", "pydreamer_tpu_torch.scripts.plot_curves",
             "pydreamer_tpu_torch.scripts.make_gif",
             "pydreamer_tpu_torch.scripts.diagnose_gridworld_pixels",
-            "pydreamer_tpu_torch.scripts.diagnose_continuous"} <= want
+            "pydreamer_tpu_torch.scripts.diagnose_continuous",
+            *(f"pydreamer_tpu_torch.scripts.{tool}" for tool in (
+                "flagship", "bench", "bench_e2e", "profile_step", "bench_step_ab", "bench_gru",
+                "bench_dream", "roofline", "bench_conv", "scaling_bench"))} <= want
     bad = [m for m in out["modules"]
            if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "msgpack", "tests")
-           or m == "pydreamer_tpu" or m.startswith("pydreamer_tpu.")]
+           or m in ("pydreamer_tpu", "__graft_entry__") or m.startswith("pydreamer_tpu.")]
     assert not bad, bad
 
 

@@ -13,10 +13,10 @@ test.
 
 import json
 import os
-import socket
 import subprocess
 import sys
 import time
+import uuid
 from pathlib import Path
 
 import jax
@@ -38,7 +38,7 @@ from pydreamer_tpu_torch.models.dreamer import Dreamer
 from pydreamer_tpu_torch.models.noise import DataShardNoise, ReplayNoise
 from pydreamer_tpu_torch.parallel import param_shardings
 from pydreamer_tpu_torch.parallel.mesh import Mesh, mesh_shape
-from pydreamer_tpu_torch.parallel.multihost import local_batch_size
+from pydreamer_tpu_torch.parallel.multihost import INIT_FILE_ENV, local_batch_size
 from tests.test_baselines import baseline_conf
 from tests.test_torch_port_train_step import (LOSS_RTOL, PARAM_ATOL, PARAM_RTOL, _batch, _close,
                                               _conf, _jax_noise, paired_models)
@@ -48,21 +48,20 @@ WORKER = ROOT / "tests" / "test_torch_port_parallel_worker.py"
 RANK_TIMEOUT_S = 180
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def spawn_ranks(mode, in_dir, out_dir, world, timeout=RANK_TIMEOUT_S):
     """Run ``world`` worker ranks (gloo on the CPU) to their end; each must
-    exit 0 within ``timeout`` seconds. Returns their outputs."""
-    port = _free_port()
+    exit 0 within ``timeout`` seconds. Returns their outputs.
+
+    The ranks meet through a new file in ``in_dir``, not at a TCP port: a
+    free port picked here could be taken by another test's process (the
+    suite runs in several workers at once) before rank 0's store binds it."""
+    store = Path(in_dir).resolve() / f"dist_store_{uuid.uuid4().hex}"
     procs = []
     for r in range(world):
-        env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
-                   WORLD_SIZE=str(world), RANK=str(r), LOCAL_RANK=str(r),
-                   PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+        env = dict(os.environ, WORLD_SIZE=str(world), RANK=str(r), LOCAL_RANK=str(r),
+                   PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1", **{INIT_FILE_ENV: str(store)})
+        for name in ("MASTER_ADDR", "MASTER_PORT"):
+            env.pop(name, None)
         env.pop("PYDREAMER_RUN_DIR", None)
         procs.append(subprocess.Popen(
             [sys.executable, str(WORKER), mode, str(in_dir), str(out_dir)], env=env, cwd=ROOT,

@@ -2,8 +2,9 @@
 
     python tests/test_torch_port_parallel_worker.py <mode> <in_dir> <out_dir>
 
-torch's environment (``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``,
-``RANK``) names the rank; the group is gloo on the CPU. It imports torch,
+torch's environment (``WORLD_SIZE``, ``RANK``) names the rank, and
+``PYDREAMER_DIST_INIT_FILE`` the file the ranks meet through; the group is
+gloo on the CPU. It imports torch,
 numpy and the port only, never JAX: the parent tests
 (``test_torch_port_parallel.py``, ``test_torch_port_multihost.py``) compute
 JAX's side and write the inputs to ``in_dir``. Modes:
@@ -19,6 +20,8 @@ JAX's side and write the inputs to ``in_dir``. Modes:
   present, for a rank's own overrides). Ranks other than 0 make every
   ``Run`` writer raise, so a write that is not rank 0's fails the run.
   Prints ``RESULT <rank> <return value>``.
+
+Every mode ends with a barrier and ``destroy_process_group``.
 """
 
 import json
@@ -123,10 +126,22 @@ def main():
     torch.set_num_threads(1)
     if mode == "trainer":
         _trainer(in_dir)  # trainer.run initializes the group itself
-        return
-    maybe_initialize_distributed("cpu")
-    {"modules": lambda: _modules(out_dir), "step": lambda: _step(in_dir, out_dir)}[mode]()
+    else:
+        maybe_initialize_distributed("cpu")
+        {"modules": lambda: _modules(out_dir), "step": lambda: _step(in_dir, out_dir)}[mode]()
+    if torch.distributed.is_initialized():
+        torch.distributed.barrier()  # neither rank leaves while the other still talks to it
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":
     main()
+    # Leave as a multiprocessing child does, without the interpreter's and
+    # C++'s teardown: gloo's threads race with that teardown, and a rank
+    # could abort in it ("terminate called without an active exception",
+    # exit -6) after its work was done and written
+    # (tests/stress_torch_port_ranks.py counts such pairs).
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
+
