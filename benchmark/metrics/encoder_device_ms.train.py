@@ -1,0 +1,9 @@
+"""encoder_device_ms.train: the device time of the activity launched inside the
+port's ``pd.encoder`` spans (``prepare_obs`` and the encoder's convs
+(``models/encoders.py``)), as the union of its intervals, in ms per profiled
+step (``benchmark/layers.py``). Silent where the program has no such span."""
+
+
+def read(run):
+    from benchmark.layers import device_ms
+    return device_ms(run.trace, "encoder")

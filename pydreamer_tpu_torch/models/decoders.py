@@ -25,7 +25,7 @@ import torch.nn.functional as F
 from .distributions import (Bernoulli, CategoricalSupport, DiagNormal, Normal,
                             support_to_categorical)
 from .functions import flatten_batch, insert_dim, logavgexp, nanmean, unflatten_batch
-from .modules import MLP, Dense
+from .modules import MLP, Dense, cast_param
 
 __all__ = ["ConvDecoder", "CatImageDecoder", "DenseBernoulliDecoder", "DenseNormalDecoder",
            "DenseCategoricalSupportDecoder", "MultiDecoder"]
@@ -51,7 +51,8 @@ class ConvTransposeS2(nn.ConvTranspose2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        return F.conv_transpose2d(x.to(dt), self.weight.to(dt), self.bias.to(dt), stride=2)
+        return F.conv_transpose2d(x.to(dt), cast_param(self.weight, dt), cast_param(self.bias, dt),
+                                  stride=2)
 
 
 class ConvDecoder(nn.Module):

@@ -31,6 +31,7 @@ import torch
 import torch.nn as nn
 
 from ..device import compute_dtype, resolve_device
+from ..tracing import span
 from .a2c import ActorCritic, Critic
 from .decoders import MultiDecoder
 from .encoders import MultiEncoder
@@ -121,11 +122,21 @@ class WorldModel(nn.Module):
         """Returns (loss, features, states, out_state, metrics, tensors)."""
         I = iwae_samples
         T, B = obs["action"].shape[:2]
-        embed = self.encoder(obs)
-        prior, post, post_samples, features, states, out_state = self.core(
-            embed, obs["action"], obs["reset"], in_state,
-            self.z_noise(noise, "posterior_z", (T, B * I)), I, do_open_loop)
+        with span("pd.encoder"):
+            embed = self.encoder(obs)
+        with span("pd.posterior"):
+            prior, post, post_samples, features, states, out_state = self.core(
+                embed, obs["action"], obs["reset"], in_state,
+                self.z_noise(noise, "posterior_z", (T, B * I)), I, do_open_loop)
+        with span("pd.heads"):
+            loss, metrics, tensors = self._heads(obs, noise, prior, post, post_samples,
+                                                 features, I, do_image_pred)
+        return loss, features, states, out_state, metrics, tensors
 
+    def _heads(self, obs, noise, prior, post, post_samples, features, I: int,
+               do_image_pred: bool):
+        """The decoders, the KL loss and the auxiliary critic -> (loss, metrics, tensors)."""
+        T, B = obs["action"].shape[:2]
         loss_reconstr, metrics, tensors = self.decoder(features, obs)
 
         # KL loss with balancing; the sampled KL for the IWAE bound.
@@ -181,7 +192,7 @@ class WorldModel(nn.Module):
                             for k, v in tens.items() if k.startswith("loss_")})
             tensors.update({k.replace("_rec", "_pred"): v
                             for k, v in tens.items() if k.endswith("_rec")})
-        return loss, features, states, out_state, metrics, tensors
+        return loss, metrics, tensors
 
 
 class Dreamer(nn.Module):
@@ -283,7 +294,8 @@ class Dreamer(nn.Module):
         Returns (losses, out_state, metrics, tensors, dream_tensors) where
         losses = {loss_model, loss_probe, loss_actor, loss_critic}.
         """
-        obs = prepare_obs(obs)
+        with span("pd.encoder"):
+            obs = prepare_obs(obs)
         I = int(iwae_samples or self.conf.iwae_samples)
         H = int(imag_horizon or self.imag_horizon)
         T, B = obs["action"].shape[:2]
@@ -293,25 +305,30 @@ class Dreamer(nn.Module):
             do_image_pred=do_image_pred)
 
         # Probe (detached features unless probe_gradients).
-        features_probe = features if self.probe_gradients else features.detach()
-        loss_probe, metrics_probe, tensors_probe = self.probe.training_step(features_probe, obs)
-        metrics.update(metrics_probe)
-        tensors.update(tensors_probe)
+        with span("pd.heads"):
+            features_probe = features if self.probe_gradients else features.detach()
+            loss_probe, metrics_probe, tensors_probe = self.probe.training_step(features_probe,
+                                                                                obs)
+            metrics.update(metrics_probe)
+            tensors.update(tensors_probe)
 
         # Imagination + actor-critic; reinforce detaches the dream whole.
-        in_state_dream = tuple(s.detach().reshape((-1,) + tuple(s.shape[3:])) for s in states)
-        dynamics = self.ac.actor_grad == "dynamics"
-        with torch.set_grad_enabled(dynamics and torch.is_grad_enabled()):
-            dream = self.dream(in_state_dream, H, noise, dynamics)
-        (loss_actor, loss_critic), metrics_ac, tensors_ac = self.ac.training_step(*dream)
-        metrics.update(metrics_ac)
-        tensors.update(policy_value=unflatten_batch(tensors_ac["value"][0], (T, B, I)).mean(-1))
+        with span("pd.dream"):
+            in_state_dream = tuple(s.detach().reshape((-1,) + tuple(s.shape[3:])) for s in states)
+            dynamics = self.ac.actor_grad == "dynamics"
+            with torch.set_grad_enabled(dynamics and torch.is_grad_enabled()):
+                dream = self.dream(in_state_dream, H, noise, dynamics)
+        with span("pd.actor_critic"):
+            (loss_actor, loss_critic), metrics_ac, tensors_ac = self.ac.training_step(*dream)
+            metrics.update(metrics_ac)
+            tensors.update(policy_value=unflatten_batch(tensors_ac["value"][0],
+                                                        (T, B, I)).mean(-1))
 
         # Dream log sample: a T-1 step rollout from the first state, aligned
         # with the real batch for side-by-side logging.
         dream_tensors = {}
         if do_dream_tensors and self.conf.image_decoder:
-            with torch.no_grad():
+            with span("pd.dream"), torch.no_grad():
                 in_state_log = tuple(s.detach()[0, :, 0] for s in states)
                 f_d, a_d, r_d, t_d = self.dream(in_state_log, T - 1, noise, prefix="log")
                 image_dream = self.wm.decoder.image_forward(f_d)

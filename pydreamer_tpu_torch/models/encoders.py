@@ -19,7 +19,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .functions import flatten_batch, unflatten_batch
-from .modules import MLP
+from .modules import MLP, cast_param
 
 __all__ = ["ConvEncoder", "DenseEncoder", "MultiEncoder", "ConvS2"]
 
@@ -39,7 +39,7 @@ class ConvS2(nn.Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        return F.conv2d(x.to(dt), self.weight.to(dt), self.bias.to(dt), stride=2)
+        return F.conv2d(x.to(dt), cast_param(self.weight, dt), cast_param(self.bias, dt), stride=2)
 
 
 class ConvEncoder(nn.Module):

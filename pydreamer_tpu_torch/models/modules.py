@@ -3,9 +3,11 @@
 Counterparts of ``pydreamer_tpu/models/modules.py:26-83``. Parameters are
 float32 master copies; each module casts its input and its parameters to the
 compute ``dtype`` per op, as the flax modules do with ``dtype=...,
-param_dtype=float32``. LayerNorm uses eps=1e-3 (PyTorch's default is 1e-5)
-and, as flax does, computes its statistics and affine map in float32 before
-casting the result to the compute dtype.
+param_dtype=float32``. Every parameter cast of the models goes through
+``cast_param``, which counts those that change a dtype
+(``tracing.COUNTERS.weight_casts``). LayerNorm uses eps=1e-3 (PyTorch's
+default is 1e-5) and, as flax does, computes its statistics and affine map
+in float32 before casting the result to the compute dtype.
 
 Submodule names follow the JAX param tree (``Dense_0``, ``Norm_0``, ...) so
 that ``convert.py`` maps parameter paths one to one.
@@ -17,15 +19,27 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-__all__ = ["Dense", "Norm", "MLP", "layer_norm"]
+from ..tracing import COUNTERS
+
+__all__ = ["Dense", "Norm", "MLP", "layer_norm", "cast_param"]
 
 LN_EPS = 1e-3
+
+
+def cast_param(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The parameter ``p`` in ``dtype``: ``p`` itself where it is in ``dtype``
+    already, else a copy, counted in ``COUNTERS.weight_casts``."""
+    if p.dtype == dtype:
+        return p
+    COUNTERS.weight_casts += 1
+    return p.to(dtype)
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                dtype: torch.dtype, eps: float = LN_EPS) -> torch.Tensor:
     """LayerNorm over the last axis computed in float32, result in ``dtype``."""
-    y = F.layer_norm(x.float(), (x.shape[-1],), weight.float(), bias.float(), eps)
+    f32 = torch.float32
+    y = F.layer_norm(x.float(), (x.shape[-1],), cast_param(weight, f32), cast_param(bias, f32), eps)
     return y.to(dtype)
 
 
@@ -50,10 +64,11 @@ class Dense(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        b = None if self.bias is None else self.bias.to(dt)
+        w = cast_param(self.weight, dt)
+        b = None if self.bias is None else cast_param(self.bias, dt)
         if self.tensor_parallel is not None:
-            return self.tensor_parallel.linear(x.to(dt), self.weight.to(dt), b)
-        return F.linear(x.to(dt), self.weight.to(dt), b)
+            return self.tensor_parallel.linear(x.to(dt), w, b)
+        return F.linear(x.to(dt), w, b)
 
 
 class Norm(nn.Module):

@@ -21,7 +21,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.gru_dv2 import gru_dv2
-from .modules import layer_norm
+from .modules import cast_param, layer_norm
 
 __all__ = ["GRUCell", "NormGRUCell", "NormGRUCellLateReset",
            "NormGRUCellLateResetFused", "GRUCellStack", "make_gru_cell"]
@@ -51,7 +51,7 @@ class _GateWeights(nn.Module):
 
     def gate_weights(self, dt: torch.dtype):
         """(W_ih, W_hh) in ``dt``, whole."""
-        w_ih, w_hh = self.weight_ih.to(dt), self.weight_hh.to(dt)
+        w_ih, w_hh = cast_param(self.weight_ih, dt), cast_param(self.weight_hh, dt)
         if self.tensor_parallel is not None:
             w_ih, w_hh = (self.tensor_parallel.gather_columns(w) for w in (w_ih, w_hh))
         return w_ih, w_hh
@@ -66,8 +66,8 @@ class GRUCell(_GateWeights):
     def forward(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         w_ih, w_hh = self.gate_weights(dt)
-        gates_i = x.to(dt) @ w_ih + self.bias_ih.to(dt)
-        gates_h = h.to(dt) @ w_hh + self.bias_hh.to(dt)
+        gates_i = x.to(dt) @ w_ih + cast_param(self.bias_ih, dt)
+        gates_h = h.to(dt) @ w_hh + cast_param(self.bias_hh, dt)
         ri, ui, ni = gates_i.chunk(3, -1)
         rh, uh, nh = gates_h.chunk(3, -1)
         reset = torch.sigmoid(ri + rh)

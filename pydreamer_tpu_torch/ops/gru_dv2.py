@@ -18,7 +18,7 @@ Counterpart of ``pydreamer_tpu/ops/gru_pallas.py`` (the Pallas kernel
   launch error raises.
 * The backward recomputes through the plain version (as JAX's ``_bwd``,
   gru_pallas.py:114-119, recomputes through plain XLA); there is no backward
-  kernel.
+  kernel. It runs in the ``pd.k1_backward`` span (``tracing.py``).
 
 Schedules. :func:`plan` picks one from (M, In, H, dtype) alone (see the
 header of ``csrc/gru_dv2.cu`` for what bounds each and how it is built):
@@ -68,6 +68,8 @@ from dataclasses import dataclass
 from pathlib import Path
 
 import torch
+
+from ..tracing import span
 
 __all__ = ["gru_dv2", "gru_dv2_reference", "gru_dv2_cuda", "GRUDv2Function",
            "LAUNCHES", "SCHEDULES", "Plan", "plan", "pick_schedule", "build",
@@ -286,7 +288,7 @@ class GRUDv2Function(torch.autograd.Function):
         grads = [None] * len(inputs)
         if not wanted:
             return tuple(grads)
-        with torch.enable_grad():
+        with span("pd.k1_backward"), torch.enable_grad():
             leaves = [t.detach().requires_grad_(i in wanted) for i, t in enumerate(inputs)]
             out = gru_dv2_reference(*leaves)
             got = torch.autograd.grad(out, [leaves[i] for i in wanted], grad_out)

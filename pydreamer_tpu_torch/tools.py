@@ -20,6 +20,8 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from .tracing import span
+
 __all__ = ["logger", "configure_logging", "print_once", "Timer", "timers_summary",
            "discount", "NoProfiler", "LogColorFormatter"]
 
@@ -80,7 +82,9 @@ class Timer:
     Samples accumulate in a class-level registry keyed by name, so
     ``with Timer("step"):`` constructed fresh every loop iteration keeps
     appending to the same series until ``timers_summary(reset=True)`` drains it.
-    ``verbose`` logs each sample at debug level.
+    ``verbose`` logs each sample at debug level. The block is also the span
+    ``pd.loop.<name>`` (``tracing.span``), so the phases show in a profiler's
+    trace beside the train step's layers; the samples keep the host clock.
     """
 
     registry: Dict[str, list] = {}
@@ -91,6 +95,8 @@ class Timer:
         self.start_time: Optional[float] = None
 
     def __enter__(self):
+        self._span = span("pd.loop." + self.name)
+        self._span.__enter__()
         self.start_time = time.time()
         return self
 
@@ -99,6 +105,7 @@ class Timer:
         Timer.registry.setdefault(self.name, []).append(dt)
         if self.verbose:
             logger.debug("%s: %.1f ms", self.name, dt * 1000)
+        self._span.__exit__(*exc)
         return False
 
     @property

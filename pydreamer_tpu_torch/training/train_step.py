@@ -47,6 +47,7 @@ import torch
 from ..device import resolve_device
 from ..models.functions import global_norm
 from ..models.noise import GeneratorNoise
+from ..tracing import COUNTERS, span
 
 __all__ = ["TrainStep", "param_parts", "param_groups", "clip_by_global_norm_"]
 
@@ -123,7 +124,13 @@ class TrainStep:
                  do_image_pred: bool = False, do_dream_tensors: bool = False):
         """One step. ``noise`` defaults to a ``GeneratorNoise`` seeded from
         ``(seed, step)``. Returns (out_state, metrics, tensors, dream_tensors);
-        metrics are 0-d tensors on the device (no host sync here)."""
+        metrics are 0-d tensors on the device (no host sync here). Counted in
+        ``tracing.COUNTERS.train_steps``; the ``pd.train_step`` span."""
+        COUNTERS.train_steps += 1
+        with span("pd.train_step"):
+            return self._step(obs, in_state, step, noise, seed, do_image_pred, do_dream_tensors)
+
+    def _step(self, obs, in_state, step, noise, seed, do_image_pred, do_dream_tensors):
         if noise is None:
             noise = GeneratorNoise(self.device, seed=seed * 1_000_003 + step)
         ctx = self.ctx
@@ -131,10 +138,11 @@ class TrainStep:
             streams = obs["action"].shape[1] * self.conf.iwae_samples
             noise = ctx.noise(noise, streams)
         model = self.model
-        if self.target_interval and step % self.target_interval == 0:
-            model.ac.update_critic_target()
-        if self.target_interval_aux and step % self.target_interval_aux == 0:
-            model.wm.ac_aux.update_critic_target()
+        with span("pd.optimizer"):
+            if self.target_interval and step % self.target_interval == 0:
+                model.ac.update_critic_target()
+            if self.target_interval_aux and step % self.target_interval_aux == 0:
+                model.wm.ac_aux.update_critic_target()
 
         if ctx is not None:
             ctx.batch_reduce.active = True
@@ -145,28 +153,30 @@ class TrainStep:
         finally:
             if ctx is not None:
                 ctx.batch_reduce.active = False
-        self.optimizer.zero_grad(set_to_none=True)
-        sum(losses.values()).backward()
+        with span("pd.backward"):
+            self.optimizer.zero_grad(set_to_none=True)
+            sum(losses.values()).backward()
 
         metrics = dict(metrics)
-        grads = {}
-        for part, params in self.parts.items():
-            for p in params:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-            grads[part] = [p.grad for p in params]
-        if ctx is None:
-            norms = {part: global_norm(g) for part, g in grads.items()}
-        else:
-            ctx.reduce_gradients([p for params in self.parts.values() for p in params])
-            norms = ctx.grad_norms(grads, self.parts)
-        for part, norm in norms.items():
-            metrics[METRICS[part]] = norm
-        for name, parts in self.groups.items():
-            norm = torch.stack([norms[part] for part in parts]).square().sum().sqrt()
-            clip_by_global_norm_([g for part in parts for g in grads[part]], norm,
-                                 self.clips[name])
-        self.optimizer.step()
+        with span("pd.optimizer"):
+            grads = {}
+            for part, params in self.parts.items():
+                for p in params:
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                grads[part] = [p.grad for p in params]
+            if ctx is None:
+                norms = {part: global_norm(g) for part, g in grads.items()}
+            else:
+                ctx.reduce_gradients([p for params in self.parts.values() for p in params])
+                norms = ctx.grad_norms(grads, self.parts)
+            for part, norm in norms.items():
+                metrics[METRICS[part]] = norm
+            for name, parts in self.groups.items():
+                norm = torch.stack([norms[part] for part in parts]).square().sum().sqrt()
+                clip_by_global_norm_([g for part in parts for g in grads[part]], norm,
+                                     self.clips[name])
+            self.optimizer.step()
         metrics.update({k: v.detach() for k, v in losses.items()})
         if ctx is not None:
             metrics = ctx.reduce_metrics(metrics)

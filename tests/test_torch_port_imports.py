@@ -41,7 +41,8 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert {"pydreamer_tpu_torch.models.noise", "pydreamer_tpu_torch.training.trainer",
             "pydreamer_tpu_torch.data.prefetch", "pydreamer_tpu_torch.native",
             "pydreamer_tpu_torch.models.probes", "pydreamer_tpu_torch.models.baselines",
-            "pydreamer_tpu_torch.analysis", "pydreamer_tpu_torch.scripts.canaries",
+            "pydreamer_tpu_torch.analysis", "pydreamer_tpu_torch.tracing",
+            "pydreamer_tpu_torch.scripts.canaries",
             "pydreamer_tpu_torch.scripts.export_metrics", "pydreamer_tpu_torch.scripts.plot_curves",
             "pydreamer_tpu_torch.scripts.make_gif",
             "pydreamer_tpu_torch.scripts.diagnose_gridworld_pixels",
