@@ -145,7 +145,7 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
    and one ``skinny_f32`` launch a policy call, exact per schedule. 15c: ``python
    -m pydreamer_tpu_torch.launch --configs defaults gridworld --gru_type
    gru_layernorm_dv2`` (deter 256, T=48, B=32, bf16, ``Grid-8x64``, one CPU
-   generator reloading the checkpoint every 15 s) for 120 steps under
+   generator reloading the checkpoint every 15 s) for 480 steps under
    ``timeout`` in a session of its own, started before 15a and running beside
    15a and 15b (its own processes; its log goes to a file): exit 0, no process
    left,
@@ -178,6 +178,21 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
    generator processes: 139 s on an H100's host) and ``scaling_bench
    --gspmd-overhead`` (a second rank process) as well; the default run has
    no room for them.
+17. The train step replayed from CUDA graphs against the eager step, at the
+   ``atari_dv2`` and ``dmc_dv2`` widths (the flagship and DMC configs above):
+   two models from the same weights, one ``TrainStep`` as it runs (graphs)
+   and one held eager, the same six batches and ``(seed, step)``. The graphed
+   run warms at step 1, captures at step 2 and replays from then on, but for
+   an eager log step (``do_image_pred``) at step 4, which the eager run takes
+   too. Per step the losses, the four gradient norms, the out-state and every
+   parameter are held to the eager run's (``GRAPH_RTOL``, ``GRAPH_ATOL``; the
+   largest differences are printed); one capture; no returned tensor shares
+   storage with another step's; a profiled replay shows K1's kernels, T
+   ``skinny`` and H ``wide`` launches credited, and device busy time within
+   ``GRAPH_BUSY_RTOL`` of a profiled eager step's. Prints the capture's
+   seconds, the segments, the host launch calls a step, ms a step either
+   way, the peak memory and the phase's seconds. ``--graph-only`` runs
+   phases 1 and 17.
 
 Prints one JSON line of per-kernel numbers (``launches``: the count on the
 path that runs the shape, ``launches_per_step``: per train step or acting
@@ -1304,7 +1319,7 @@ def f32_step_ab(torch, k1, conf, device, n: int) -> dict:
     ffma), ``n`` steps a window after 2 warm-up steps. -> ms per step by
     variant and each window's launches by schedule."""
     from pydreamer_tpu_torch.models.dreamer import Dreamer
-    from pydreamer_tpu_torch.training.train_step import TrainStep
+    from pydreamer_tpu_torch.training.train_step import CudaGraphs, StepGraphs, TrainStep
     plan = k1.plan
 
     def ffma_plan(M, In, H, *dtypes):
@@ -1315,11 +1330,18 @@ def f32_step_ab(torch, k1, conf, device, n: int) -> dict:
     ts = TrainStep(model, conf, device=device)
     gen = torch.Generator(device=device).manual_seed(14)
     obs = make_obs(torch, conf, gen, device)
-    _, state, _ = timed_steps(torch, ts, obs, model.init_state(conf.batch_size), 0, 2)
-    out, step = {"ffma": [], "3xtf32": [], "launches": []}, 2
+    state, step = model.init_state(conf.batch_size), 0
+    out = {"ffma": [], "3xtf32": [], "launches": []}
+    # A replay runs the schedules its capture planned: each variant replays
+    # its own capture, warmed and captured before its first window.
+    graphs = {variant: StepGraphs(CudaGraphs(device)) for variant in ("ffma", "3xtf32")}
     try:
         for variant in ("ffma", "3xtf32", "3xtf32", "ffma"):
             k1.plan = ffma_plan if variant == "ffma" else plan
+            ts.graphs = graphs[variant]
+            if not ts.graphs.captured:
+                _, state, _ = timed_steps(torch, ts, obs, state, step, 2)
+                step += 2
             k1.LAUNCHES.reset()
             ms, state, _ = timed_steps(torch, ts, obs, state, step, n)
             step += n
@@ -1567,8 +1589,10 @@ GATES = {
 # demo_gridworld.sh has it. log_interval 10: the first logged window is steps
 # 11-20 (the trainer logs no first window); on the H100 loss_model halved from
 # there by step 40. It runs beside 15a and 15b: the learner and the generator
-# are processes of their own, and the card has room for both.
-LIVE_STEPS = 120
+# are processes of their own, and the card has room for both. 480 steps: the
+# graphed step takes ~65 ms (120 eager ones took ~40 s), so the run lasts
+# long enough for the generator to load a checkpoint and act from it.
+LIVE_STEPS = 480
 LIVE_ARGS = ["--configs", "defaults", "gridworld", "--gru_type", "gru_layernorm_dv2",
              "--limit_step_ratio", "200", "--model_reload_interval", "15",
              "--generator_log_every", "2", "--eval_interval", "0", "--save_interval", "40",
@@ -1684,7 +1708,14 @@ def learning_phase(torch, k1, report, path_launches, per_step, gen, device, peak
     rc = proc.wait()
     live_s = log_path.stat().st_mtime - t_live  # to the launcher's last line
     log = log_path.read_text()
+    # A process of the session that is exiting as the launcher exits (its
+    # multiprocessing resource tracker) gets the few seconds that 12c's
+    # communicate() gives it by waiting for the pipe to close.
+    deadline = time.perf_counter() + 10.0
     left = session_processes(proc.pid)
+    while left and time.perf_counter() < deadline:
+        time.sleep(0.5)
+        left = session_processes(proc.pid)
     for pid in left:
         os.kill(pid, 9)
     live = out["live"] = dict(rc=rc, wall_s=live_s, processes_left=left)
@@ -1944,6 +1975,148 @@ def tools_phase(torch, k1, report, path_launches, per_step, peaks, smi: str,
 
 
 
+GRAPH_STEPS = 6      # steps a side in phase 17
+GRAPH_LOG_STEP = 4   # the eager log step inside the graphed run
+GRAPH_SEED = 2 ** 33 + 17
+GRAPH_RTOL = 1e-5    # losses and gradient norms, relative: the same kernels on the same operands
+GRAPH_ATOL = 1e-6    # out-state and parameters, max-abs
+GRAPH_BUSY_RTOL = 0.05
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                "cudaGraphLaunch")
+
+
+def profiled_step(torch, k1, ts, obs, state, step: int) -> dict:
+    """One TrainStep call under torch.profiler: the union of its device
+    activity (the spans' annotations left out), the host's launch calls, K1's
+    kernel records by kind and its launches by the wrapper's count."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    before = dict(k1.LAUNCHES.by_schedule)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, _, _, _ = ts(obs, state, step)
+        torch.cuda.synchronize()
+    device, launch_calls = [], 0
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == DeviceType.CUDA and not ev.is_user_annotation():
+            device.append((ev.start_ns(), ev.start_ns() + ev.duration_ns(), ev.name()))
+        elif ev.name() in LAUNCH_CALLS:
+            launch_calls += 1
+    busy, end = 0, None
+    for a, b, _ in sorted(device):
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    launched = {k: n - before.get(k, 0) for k, n in k1.LAUNCHES.by_schedule.items()
+                if n != before.get(k, 0)}
+    k1_launches = {kind: sum(1 for *_, name in device if "k1::" in name and kind in name)
+                   for kind in ("skinny::gates_kernel", "wide::gates_kernel", "generic::", "f32::")}
+    return dict(state=state, busy_ms=busy / 1e6, launch_calls=launch_calls, launched=launched,
+                k1_launches=k1_launches, k1_kernels=sorted({n for *_, n in device if "k1::" in n}))
+
+
+def graph_phase(torch, k1, report, gen, device) -> dict:
+    """17. The step replayed from CUDA graphs against the eager step (the
+    module docstring). -> the phase's numbers, also in ``report["graphs"]``."""
+    from pydreamer_tpu_torch.conf import Conf
+    from pydreamer_tpu_torch.models.dreamer import Dreamer
+    from pydreamer_tpu_torch.tracing import COUNTERS
+    from pydreamer_tpu_torch.training.train_step import METRICS, TrainStep
+
+    t_phase = time.perf_counter()
+    out = {}
+    for label, cfg in (("atari_dv2", FLAGSHIP), ("dmc_dv2", DMC)):
+        conf = Conf(cfg)
+        T, B, H_imag = conf.batch_length, conf.batch_size, conf.imag_horizon
+        torch.manual_seed(17)
+        models = {"graphed": Dreamer(conf, device=device), "eager": Dreamer(conf, device=device)}
+        models["eager"].load_state_dict(models["graphed"].state_dict())
+        steps = {k: TrainStep(m, conf, device=device) for k, m in models.items()}
+        steps["eager"].graphs = None
+        batches = [make_obs(torch, conf, gen, device) for _ in range(GRAPH_STEPS)]
+        states = {k: m.init_state(B) for k, m in models.items()}
+        counts0 = (COUNTERS.graph_captures, COUNTERS.graph_replays)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kept, worst, rows = [], {"metrics": 0.0, "state": 0.0, "params": 0.0}, []
+        for i, obs in enumerate(batches):
+            step = i + 1
+            flags = dict(do_image_pred=True) if step == GRAPH_LOG_STEP else {}
+            got = {}
+            for k in ("graphed", "eager"):
+                states[k], metrics, tensors, _ = steps[k](obs, states[k], step, seed=GRAPH_SEED,
+                                                          **flags)
+                got[k] = (states[k], metrics, tensors)
+            kept.append(got["graphed"])
+            (sg, mg, _), (se, me, _) = got["graphed"], got["eager"]
+            names = ["loss_model", "loss_probe", "loss_actor", "loss_critic",
+                     *[m for m in METRICS.values() if m in me]]
+            rel = max(abs(mg[n].item() - me[n].item()) / max(abs(me[n].item()), 1e-12)
+                      for n in names)
+            st = max((a.float() - b.float()).abs().max().item() for a, b in zip(sg, se))
+            pa = max((a - b).abs().max().item() for a, b in
+                     zip(models["graphed"].parameters(), models["eager"].parameters()))
+            rows.append(dict(step=step, metrics_rel=rel, state_abs=st, params_abs=pa,
+                             loss_model=(mg["loss_model"].item(), me["loss_model"].item())))
+            worst = {k: max(worst[k], v) for k, v in
+                     (("metrics", rel), ("state", st), ("params", pa))}
+            if not (rel <= GRAPH_RTOL and st <= GRAPH_ATOL and pa <= GRAPH_ATOL):
+                raise AssertionError(f"[17] {label} step {step}: graphed vs eager metrics rel "
+                                     f"{rel}, out-state {st}, parameters {pa}: {rows}")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        captures = COUNTERS.graph_captures - counts0[0]
+        replays = COUNTERS.graph_replays - counts0[1]
+        if captures != 1 or replays != GRAPH_STEPS - 2:
+            raise AssertionError(f"[17] {label}: {captures} captures, {replays} replays; expected "
+                                 f"1 and {GRAPH_STEPS - 2}")
+        storages = [{t.untyped_storage().data_ptr() for t in
+                     torch.utils._pytree.tree_leaves(step_out)} for step_out in kept]
+        shared = [(a, b) for a in range(len(storages)) for b in range(a + 1, len(storages))
+                  if storages[a] & storages[b]]
+        if shared:
+            raise AssertionError(f"[17] {label}: steps {shared} returned tensors that share storage")
+        (captured,) = steps["graphed"].graphs.captured.values()
+        tags = [t[-1] if t else "-" for t, _ in captured.segments]
+        out[label] = dict(rows=rows, worst=worst, capture_s=captured.seconds,
+                          segments=len(captured.segments),
+                          segments_by_span={t: tags.count(t) for t in dict.fromkeys(tags)},
+                          peak_mem_gb=peak_gb)
+        print(f"[17] {label}: graphed vs eager over {GRAPH_STEPS} steps (eager log step "
+              f"{GRAPH_LOG_STEP}): largest metrics rel {worst['metrics']:.3e}, out-state "
+              f"{worst['state']:.3e}, parameters {worst['params']:.3e} (limits {GRAPH_RTOL}, "
+              f"{GRAPH_ATOL}); capture {captured.seconds:.3f} s, {len(captured.segments)} "
+              f"segments {out[label]['segments_by_span']}; peak mem {peak_gb:.2f} GB", flush=True)
+        # A profiled replay and a profiled eager step, then both timed.
+        prof = {k: profiled_step(torch, k1, steps[k], batches[0], states[k], GRAPH_STEPS + 1)
+                for k in ("graphed", "eager")}
+        for k in prof:
+            states[k] = prof[k].pop("state")
+        busy = {k: prof[k]["busy_ms"] for k in prof}
+        ms = {}
+        for k in ("graphed", "eager"):
+            ms[k], states[k], _ = timed_steps(torch, steps[k], batches[1], states[k],
+                                              GRAPH_STEPS + 1, 5)
+        out[label].update(profiled=prof, step_ms=ms)
+        print(f"[17] {label}: a profiled step, graphed / eager: launch calls "
+              f"{prof['graphed']['launch_calls']} / {prof['eager']['launch_calls']}, device busy "
+              f"ms {busy['graphed']:.3f} / {busy['eager']:.3f}, K1 kernels recorded "
+              f"{prof['graphed']['k1_launches']} / {prof['eager']['k1_launches']}; ms a step "
+              f"{ms['graphed']:.2f} / {ms['eager']:.2f}", flush=True)
+        if not abs(busy["graphed"] - busy["eager"]) <= GRAPH_BUSY_RTOL * busy["eager"]:
+            raise AssertionError(f"[17] {label}: device busy ms graphed {busy['graphed']} vs "
+                                 f"eager {busy['eager']}")
+        check_profiled_k1(prof["graphed"], T, H_imag, f"[17] {label} profiled replay")
+        del models, steps, states, kept, batches, captured
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    report["graphs"] = out
+    print(f"[17] phase 17 took {out['seconds']:.1f} s")
+    return out
+
+
 def finish(torch, report, path_launches, per_step, smi: str, name: str) -> int:
     """The kernels line (one entry per timed K1 row: its launches on the path
     that runs its shape, per train step or acting call), the nvidia-smi line
@@ -1981,9 +2154,10 @@ def finish(torch, report, path_launches, per_step, smi: str, name: str) -> int:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if argv not in ([], ["--learning-only"], ["--tools-only"]):
-        print("usage: chip_smoke.py [--learning-only | --tools-only]  (phases 1 and 15 alone; "
-              "phases 1, 2 at the flagship shapes, and 16 with bench_e2e)", file=sys.stderr)
+    if argv not in ([], ["--learning-only"], ["--tools-only"], ["--graph-only"]):
+        print("usage: chip_smoke.py [--learning-only | --tools-only | --graph-only]  (phases 1 "
+              "and 15 alone; phases 1, 2 at the flagship shapes, and 16 with bench_e2e; "
+              "phases 1 and 17)", file=sys.stderr)
         return 2
     import torch
     if not torch.cuda.is_available():
@@ -2034,6 +2208,10 @@ def main(argv=None) -> int:
         path_launches, per_step = {}, {}
         learning_phase(torch, k1, report, path_launches, per_step, gen, device, peaks, unfused)
         return finish(torch, report, path_launches, per_step, smi, name)
+    if argv == ["--graph-only"]:
+        report["phase_start"][17] = report["phase_start"].pop(2)
+        graph_phase(torch, k1, report, gen, device)
+        return finish(torch, report, {}, {}, smi, name)
     if argv == ["--tools-only"]:
         for M, want in ((B, "skinny"), (T * B, "wide")):
             res = check_k1(torch, k1, M, In, H, bf16, want, gen, device, True, peaks, unfused)
@@ -2353,6 +2531,10 @@ def main(argv=None) -> int:
     report["phase_start"][16] = time.perf_counter()
     # 16. The measurement tools at the flagship width (bench_e2e under --tools-only).
     tools_phase(torch, k1, report, path_launches, per_step, peaks, smi, with_e2e=False)
+
+    report["phase_start"][17] = time.perf_counter()
+    # 17. The step replayed from CUDA graphs against the eager step.
+    graph_phase(torch, k1, report, gen, device)
     return finish(torch, report, path_launches, per_step, smi, name)
 
 

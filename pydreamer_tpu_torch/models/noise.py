@@ -68,11 +68,14 @@ NOISE_KINDS = ("gumbel", "normal", "uniform")
 
 
 class GeneratorNoise:
-    """Standard noise of each kind from a ``torch.Generator`` on ``device``."""
+    """Standard noise of each kind from a ``torch.Generator`` on ``device``,
+    seeded with ``seed``: a new one, or ``generator`` (one that CUDA graphs
+    hold, ``training/train_step.py``), reseeded."""
 
-    def __init__(self, device: torch.device | str, seed: int = 0):
+    def __init__(self, device: torch.device | str, seed: int = 0,
+                 generator: Optional[torch.Generator] = None):
         self.device = torch.device(device)
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.generator = (generator or torch.Generator(device=self.device)).manual_seed(seed)
 
     def draw(self, name: str, shape: Sequence[int], kind: str,
              t: Optional[int] = None) -> torch.Tensor:

@@ -53,7 +53,8 @@ The kernels are built from the repo's source at first use with ``nvcc`` for
 ``sm_90a`` into ``ops/_build/`` (listed in .gitignore) and loaded with ctypes
 through a plain C interface, so the build needs neither ninja nor PyTorch's
 headers. ``LAUNCHES`` counts launches, in all, by row count and by schedule,
-so a run can show that its main path went through the kernel.
+so a run can show that its main path went through the kernel; its fields are
+registered with ``tracing.TALLIES``, so a replayed train step credits them.
 """
 
 from __future__ import annotations
@@ -69,7 +70,7 @@ from pathlib import Path
 
 import torch
 
-from ..tracing import span
+from ..tracing import TALLIES, span
 
 __all__ = ["gru_dv2", "gru_dv2_reference", "gru_dv2_cuda", "GRUDv2Function",
            "LAUNCHES", "SCHEDULES", "Plan", "plan", "pick_schedule", "build",
@@ -156,7 +157,7 @@ class _LaunchCounter:
         self.by_schedule: dict[str, int] = {}
 
 
-LAUNCHES = _LaunchCounter()
+LAUNCHES = TALLIES.register(_LaunchCounter(), "count", "by_rows", "by_schedule")
 _lib = None
 
 

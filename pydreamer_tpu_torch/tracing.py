@@ -3,9 +3,12 @@
 ``span(name)`` marks a layer for ``torch.profiler``. While a profiler
 records, it is ``torch.profiler.record_function(name)``: Kineto puts the span
 on the same timeline as the CUDA activity launched inside it, so a reader
-can put each kernel down to the span of its launch. Otherwise it is one
-shared null context (``NULL``), and a span site costs one flag check: no
-object, no allocation, no synchronize, no launch.
+can put each kernel down to the span of its launch. While ``TrainStep``
+captures its step into CUDA graphs (``training/train_step.py``), a span of
+one of the ``LEAVES`` also tells the capture (``cutting``) where a layer
+begins and ends, and the capture cuts its graph there. Otherwise it is one
+shared null context (``NULL``), and a span site costs two flag checks (no
+capture, no profiler): no object, no allocation, no synchronize, no launch.
 
 The spans the port opens; each name starts with ``pd.`` (never ``cu``, which
 trace readers take for the CUDA runtime's own calls):
@@ -26,27 +29,76 @@ trace readers take for the CUDA runtime's own calls):
 * ``pd.loop.<name>``: ``tools.Timer``'s phases of the trainer's loop.
 
 ``COUNTERS`` counts always, in plain integer adds: ``weight_casts``, each
-cast of a parameter to another dtype (``models/modules.py::cast_param``),
-and ``train_steps``, the ``TrainStep`` calls.
+cast of a parameter to another dtype (``models/modules.py::cast_param``);
+``train_steps``, the ``TrainStep`` calls; ``graph_captures``, the steps
+``TrainStep`` captured into CUDA graphs, and ``graph_replays``, its calls
+served by replaying them. The adds of the model's code run only while a step
+runs eagerly or is captured: a replay credits what its capture counted, in
+every counter field registered with ``TALLIES`` (``COUNTERS.weight_casts``
+here, K1's ``LAUNCHES`` in ``ops/gru_dv2.py``). A counter that the model's
+code adds to registers its fields there, or a replayed step leaves it short.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 
 from torch.autograd import profiler as _profiler
 
-__all__ = ["span", "NULL", "COUNTERS"]
+__all__ = ["span", "NULL", "COUNTERS", "TALLIES", "LEAVES", "cutting"]
 
 NULL = contextlib.nullcontext()
 record_function = _profiler.record_function
+# The spans at which a capture cuts: the seven layers of the step and K1's backward.
+LEAVES = frozenset(("pd.encoder", "pd.posterior", "pd.heads", "pd.dream", "pd.actor_critic",
+                    "pd.backward", "pd.optimizer", "pd.k1_backward"))
+_capture = None  # the capture being cut at the spans (``cutting``), or None
 
 
 def span(name: str):
-    """``record_function(name)`` while a profiler records, else ``NULL``."""
-    if _profiler._is_profiler_enabled:
-        return record_function(name)
-    return NULL
+    """``record_function(name)`` while a profiler records, a cut of the
+    capture at a leaf while a step is captured, else ``NULL``."""
+    if _capture is None and not _profiler._is_profiler_enabled:
+        return NULL
+    if _capture is not None and name in LEAVES:
+        return _Cut(_capture, name)
+    return record_function(name) if _profiler._is_profiler_enabled else NULL
+
+
+class _Cut:
+    """A leaf span during a capture: ``capture.enter(name)`` on entry and
+    ``capture.exit(name)`` on exit, around the profiler's span if one records."""
+
+    def __init__(self, capture, name: str):
+        self.capture, self.name = capture, name
+        self.recorded = record_function(name) if _profiler._is_profiler_enabled else None
+
+    def __enter__(self):
+        self.capture.enter(self.name)
+        if self.recorded is not None:
+            self.recorded.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self.recorded is not None:
+            self.recorded.__exit__(*exc)
+        self.capture.exit(self.name, failed=exc[0] is not None)
+        return False
+
+
+@contextlib.contextmanager
+def cutting(capture):
+    """Route the leaf spans opened inside the block, on any thread, to
+    ``capture``'s ``enter(name)`` and ``exit(name, failed)``."""
+    global _capture
+    if _capture is not None:
+        raise RuntimeError("a capture is being cut already")
+    _capture = capture
+    try:
+        yield capture
+    finally:
+        _capture = None
 
 
 class _Counters:
@@ -58,6 +110,55 @@ class _Counters:
     def reset(self) -> None:
         self.weight_casts = 0
         self.train_steps = 0
+        self.graph_captures = 0
+        self.graph_replays = 0
+
+
+class Tallies:
+    """The fields of counters that the model's code adds to while a step
+    runs, each an int or a dict of ints: what a replay of a captured step
+    credits. ``snapshot()`` before the capture, ``since(it)`` after it, and
+    ``credit(since)`` at each replay."""
+
+    def __init__(self):
+        self.fields = []  # (counter, attribute name)
+
+    def register(self, counter, *names: str):
+        self.fields += [(counter, name) for name in names]
+        return counter
+
+    def snapshot(self) -> list:
+        return [(c, n, copy.copy(getattr(c, n))) for c, n in self.fields]
+
+    @staticmethod
+    def restore(snapshot: list) -> None:
+        for c, n, value in snapshot:
+            setattr(c, n, copy.copy(value))
+
+    @staticmethod
+    def since(snapshot: list) -> list:
+        """What each field of ``snapshot`` counted since it was taken."""
+        changes = []
+        for c, n, before in snapshot:
+            now = getattr(c, n)
+            if isinstance(now, dict):
+                now = {k: v - before.get(k, 0) for k, v in now.items() if v != before.get(k, 0)}
+            else:
+                now = now - before
+            changes.append((c, n, now))
+        return changes
+
+    @staticmethod
+    def credit(changes: list) -> None:
+        for c, n, change in changes:
+            if isinstance(change, dict):
+                counts = getattr(c, n)
+                for k, v in change.items():
+                    counts[k] = counts.get(k, 0) + v
+            else:
+                setattr(c, n, getattr(c, n) + change)
 
 
 COUNTERS = _Counters()
+TALLIES = Tallies()
+TALLIES.register(COUNTERS, "weight_casts")
