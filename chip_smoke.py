@@ -193,6 +193,26 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
    seconds, the segments, the host launch calls a step, ms a step either
    way, the peak memory and the phase's seconds. ``--graph-only`` runs
    phases 1 and 17.
+18. K1 at DreamerV3 XL's shapes (In=1024, H=4096, bf16): ``skinny`` at M=16
+   (the posterior loop) and ``wide`` at M=1024 (the dream) against the
+   plain version, forward and six gradients, timed as in 2; then K1's
+   backward (the float32 recompute through the plain version and its
+   gradients) at both shapes: ms of a forward and backward through K1's
+   autograd function beside the same through the plain version; then
+   ``bench_gru --cells dv3``, the tool's lines at the same two shapes.
+19. The DreamerV3 XL step (``--configs defaults atari dreamerv3_xl``, read
+   by the port's ``build_conf``) replayed from CUDA graphs against the eager
+   step, as 17 does at the DreamerV2 widths, with the return statistics
+   (``ac.retnorm.stats``) and the slow critic (``ac.critic_target``) held
+   too: the device state that each replay must update in place. Every batch
+   starts with a reset, so the learned initial state enters each step.
+   19b: ``trainer.run`` on the same preset from episode files written from
+   a seed (60 steps): ``make_model`` builds DreamerV3 XL, step 1 is a log
+   step, step 2 captures, the rest replay (at least 97% of the calls), K1
+   launches 64 ``skinny`` (M=16) and 15 ``wide`` (M=1024) a step, plus the
+   log step's 63-step dream at M=16 (these counts are the kernels line's
+   for the two DreamerV3 XL rows), and the checkpoint lands at step 60.
+   ``--dv3-only`` runs phases 1, 18, 19 and 19b.
 
 Prints one JSON line of per-kernel numbers (``launches``: the count on the
 path that runs the shape, ``launches_per_step``: per train step or acting
@@ -1975,6 +1995,125 @@ def tools_phase(torch, k1, report, path_launches, per_step, peaks, smi: str,
 
 
 
+DV3_IN, DV3_H = 1024, 4096  # K1's In and H in DreamerV3 XL (hidden_dim, deter_dim)
+
+
+def k1_backward_ms(torch, k1, M, In, H, gen, device, iters: int = 10) -> dict:
+    """ms of a forward and backward (all six gradients) through K1's autograd
+    function and through the plain version, bf16 operands, timed with CUDA
+    events over ``iters`` calls after two warm ones (autograd's backward is
+    not captured in a graph here)."""
+    ins = k1_inputs(torch, M, In, H, gen, device, torch.bfloat16)
+    proj = torch.randn(M, H, generator=gen, device=device)
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_() for t in ins]
+        (fn(*leaves) * proj).sum().backward()
+
+    out = {}
+    for key, fn in (("k1_fwd_bwd_ms", k1.GRUDv2Function.apply),
+                    ("plain_fwd_bwd_ms", k1.gru_dv2_reference)):
+        for _ in range(2):
+            run(fn)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(iters):
+            run(fn)
+        end.record()
+        torch.cuda.synchronize()
+        out[key] = start.elapsed_time(end) / iters
+    return out
+
+
+def dv3_k1_phase(torch, k1, report, gen, device, peaks, unfused) -> list:
+    """18. K1 at DreamerV3 XL's shapes (the module docstring)."""
+    rows = []
+    for M, want in ((16, "skinny"), (1024, "wide")):
+        res = check_k1(torch, k1, M, DV3_IN, DV3_H, torch.bfloat16, want, gen, device, True,
+                       peaks, unfused)
+        res.update(k1_backward_ms(torch, k1, M, DV3_IN, DV3_H, gen, device))
+        res["plan"] = vars(k1.plan(M, DV3_IN, DV3_H, torch.bfloat16))
+        report["k1"].append(res)
+        rows.append(res)
+        print(f"[18] K1 {want} M={M} In={DV3_IN} H={DV3_H} bf16 {res['plan']}: {k1_summary(res)}; "
+              f"forward+backward {res['k1_fwd_bwd_ms']:.3f} ms (plain "
+              f"{res['plain_fwd_bwd_ms']:.3f})", flush=True)
+    from pydreamer_tpu_torch.scripts import bench_gru
+    lines = bench_gru.main(["--cells", "dv3", "--warmup", "2", "--steps", "10"])
+    if [line["schedule"] for line in lines] != ["skinny", "wide"]:
+        raise AssertionError(f"[18] bench_gru --cells dv3: {lines}")
+    report["bench_gru_dv3"] = lines
+    return rows
+
+
+def dv3_conf():
+    """DreamerV3 XL as the normal path reads it: ``--configs defaults atari dreamerv3_xl``."""
+    from pydreamer_tpu_torch.conf import build_conf
+    return build_conf(str(Path(__file__).resolve().parent / "config"),
+                      ["defaults", "atari", "dreamerv3_xl"])
+
+
+DV3_LEARNER_STEPS = 60  # phase 19b: step 1 a log step (eager), step 2 the capture, then replays
+
+
+def dv3_learner_phase(torch, k1, report, path_launches, per_step, device) -> dict:
+    """19b. ``trainer.run`` on ``--configs defaults atari dreamerv3_xl`` from
+    episode files written from a seed: ``make_model`` builds DreamerV3 XL,
+    ``TrainStep`` replays its captured step; the share of calls replayed, K1's
+    launches on this path (counted into ``path_launches`` and ``per_step``
+    for the kernels line) and a checkpoint at the end."""
+    import shutil
+
+    import numpy as np
+
+    from pydreamer_tpu_torch.conf import Conf
+    from pydreamer_tpu_torch.data import NpzEpisodeRepository
+    from pydreamer_tpu_torch.tracing import COUNTERS
+    from pydreamer_tpu_torch.tracking import load_checkpoint_file
+    from pydreamer_tpu_torch.training import trainer
+
+    t0 = time.perf_counter()
+    d = dv3_conf()
+    episodes = Path(__file__).resolve().parent / "runs" / "chip_smoke_dv3_episodes"
+    run_dir = Path(__file__).resolve().parent / "runs" / "chip_smoke_dv3_learner"
+    for path in (episodes, run_dir):
+        shutil.rmtree(path, ignore_errors=True)
+    write_episodes(np, NpzEpisodeRepository(episodes), 4, 1000, d["action_dim"], seed=19)
+    d.update(offline_data_dir=str(episodes), generator_prefill_steps=0, data_workers=2,
+             n_steps=DV3_LEARNER_STEPS, save_interval=DV3_LEARNER_STEPS, eval_interval=0)
+    torch.cuda.empty_cache()
+    COUNTERS.reset()
+    k1.LAUNCHES.reset()
+    trainer.run(Conf(d), run_dir=str(run_dir), device=device)
+    torch.cuda.synchronize()
+    rows, sched = dict(k1.LAUNCHES.by_rows), dict(k1.LAUNCHES.by_schedule)
+    share = 100.0 * COUNTERS.graph_replays / COUNTERS.train_steps
+    saved, step = load_checkpoint_file(run_dir / "checkpoints" / "latest.ckpt", "cpu")
+    params = sum(v.numel() for k, v in saved["model"].items() if ".critic_target." not in k
+                 and k != "ac.retnorm.stats")
+    out = dict(train_steps=COUNTERS.train_steps, graph_captures=COUNTERS.graph_captures,
+               graph_replays=COUNTERS.graph_replays, graph_replay_share=share,
+               launches_by_rows=rows, launches_by_schedule=sched,
+               checkpoint_step=step, parameters=params, seconds=time.perf_counter() - t0)
+    report["dv3_learner"] = out
+    print(f"[19b] trainer.run on defaults atari dreamerv3_xl: {out}", flush=True)
+    n, T, B, H_imag = COUNTERS.train_steps, d["batch_length"], d["batch_size"], d["imag_horizon"]
+    want = {"skinny": n * T + T - 1, "wide": n * H_imag}  # step 1 logs the dream: T-1 more
+    if (step != DV3_LEARNER_STEPS or COUNTERS.graph_captures != 1 or share < 97.0
+            or tuple(saved["model"]["wm.core.cell.initial"].shape) != (4096,)
+            or sched != want or rows != {B: want["skinny"], T * B: want["wide"]}):
+        raise AssertionError(f"[19b] {out}; expected K1 launches {want}")
+    H = d["deter_dim"]
+    path_launches[("skinny", B, H)] = path_launches.get(("skinny", B, H), 0) + sched["skinny"]
+    path_launches[("wide", T * B, H)] = path_launches.get(("wide", T * B, H), 0) + sched["wide"]
+    per_step[(B, H)] = per_step.get((B, H), 0) + n
+    per_step[(T * B, H)] = per_step.get((T * B, H), 0) + n
+    for path in (episodes, run_dir):
+        shutil.rmtree(path, ignore_errors=True)
+    return out
+
+
 GRAPH_STEPS = 6      # steps a side in phase 17
 GRAPH_LOG_STEP = 4   # the eager log step inside the graphed run
 GRAPH_SEED = 2 ** 33 + 17
@@ -2018,9 +2157,12 @@ def profiled_step(torch, k1, ts, obs, state, step: int) -> dict:
                 k1_launches=k1_launches, k1_kernels=sorted({n for *_, n in device if "k1::" in n}))
 
 
-def graph_phase(torch, k1, report, gen, device) -> dict:
-    """17. The step replayed from CUDA graphs against the eager step (the
-    module docstring). -> the phase's numbers, also in ``report["graphs"]``."""
+def graph_phase(torch, k1, report, gen, device, configs=None, phase: str = "17",
+                key: str = "graphs") -> dict:
+    """17 (and 19). The step replayed from CUDA graphs against the eager step
+    (the module docstring), at ``configs`` ((label, conf dict) pairs; the
+    DreamerV2 widths by default). -> the phase's numbers, also in
+    ``report[key]``."""
     from pydreamer_tpu_torch.conf import Conf
     from pydreamer_tpu_torch.models.dreamer import Dreamer
     from pydreamer_tpu_torch.tracing import COUNTERS
@@ -2028,7 +2170,7 @@ def graph_phase(torch, k1, report, gen, device) -> dict:
 
     t_phase = time.perf_counter()
     out = {}
-    for label, cfg in (("atari_dv2", FLAGSHIP), ("dmc_dv2", DMC)):
+    for label, cfg in configs or (("atari_dv2", FLAGSHIP), ("dmc_dv2", DMC)):
         conf = Conf(cfg)
         T, B, H_imag = conf.batch_length, conf.batch_size, conf.imag_horizon
         torch.manual_seed(17)
@@ -2059,32 +2201,35 @@ def graph_phase(torch, k1, report, gen, device) -> dict:
             st = max((a.float() - b.float()).abs().max().item() for a, b in zip(sg, se))
             pa = max((a - b).abs().max().item() for a, b in
                      zip(models["graphed"].parameters(), models["eager"].parameters()))
+            if models["eager"].ac.retnorm is not None:  # DreamerV3's return statistics
+                st = max(st, (models["graphed"].ac.retnorm.stats
+                              - models["eager"].ac.retnorm.stats).abs().max().item())
             rows.append(dict(step=step, metrics_rel=rel, state_abs=st, params_abs=pa,
                              loss_model=(mg["loss_model"].item(), me["loss_model"].item())))
             worst = {k: max(worst[k], v) for k, v in
                      (("metrics", rel), ("state", st), ("params", pa))}
             if not (rel <= GRAPH_RTOL and st <= GRAPH_ATOL and pa <= GRAPH_ATOL):
-                raise AssertionError(f"[17] {label} step {step}: graphed vs eager metrics rel "
+                raise AssertionError(f"[{phase}] {label} step {step}: graphed vs eager metrics rel "
                                      f"{rel}, out-state {st}, parameters {pa}: {rows}")
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         captures = COUNTERS.graph_captures - counts0[0]
         replays = COUNTERS.graph_replays - counts0[1]
         if captures != 1 or replays != GRAPH_STEPS - 2:
-            raise AssertionError(f"[17] {label}: {captures} captures, {replays} replays; expected "
+            raise AssertionError(f"[{phase}] {label}: {captures} captures, {replays} replays; expected "
                                  f"1 and {GRAPH_STEPS - 2}")
         storages = [{t.untyped_storage().data_ptr() for t in
                      torch.utils._pytree.tree_leaves(step_out)} for step_out in kept]
         shared = [(a, b) for a in range(len(storages)) for b in range(a + 1, len(storages))
                   if storages[a] & storages[b]]
         if shared:
-            raise AssertionError(f"[17] {label}: steps {shared} returned tensors that share storage")
+            raise AssertionError(f"[{phase}] {label}: steps {shared} returned tensors that share storage")
         (captured,) = steps["graphed"].graphs.captured.values()
         tags = [t[-1] if t else "-" for t, _ in captured.segments]
         out[label] = dict(rows=rows, worst=worst, capture_s=captured.seconds,
                           segments=len(captured.segments),
                           segments_by_span={t: tags.count(t) for t in dict.fromkeys(tags)},
                           peak_mem_gb=peak_gb)
-        print(f"[17] {label}: graphed vs eager over {GRAPH_STEPS} steps (eager log step "
+        print(f"[{phase}] {label}: graphed vs eager over {GRAPH_STEPS} steps (eager log step "
               f"{GRAPH_LOG_STEP}): largest metrics rel {worst['metrics']:.3e}, out-state "
               f"{worst['state']:.3e}, parameters {worst['params']:.3e} (limits {GRAPH_RTOL}, "
               f"{GRAPH_ATOL}); capture {captured.seconds:.3f} s, {len(captured.segments)} "
@@ -2100,20 +2245,20 @@ def graph_phase(torch, k1, report, gen, device) -> dict:
             ms[k], states[k], _ = timed_steps(torch, steps[k], batches[1], states[k],
                                               GRAPH_STEPS + 1, 5)
         out[label].update(profiled=prof, step_ms=ms)
-        print(f"[17] {label}: a profiled step, graphed / eager: launch calls "
+        print(f"[{phase}] {label}: a profiled step, graphed / eager: launch calls "
               f"{prof['graphed']['launch_calls']} / {prof['eager']['launch_calls']}, device busy "
               f"ms {busy['graphed']:.3f} / {busy['eager']:.3f}, K1 kernels recorded "
               f"{prof['graphed']['k1_launches']} / {prof['eager']['k1_launches']}; ms a step "
               f"{ms['graphed']:.2f} / {ms['eager']:.2f}", flush=True)
         if not abs(busy["graphed"] - busy["eager"]) <= GRAPH_BUSY_RTOL * busy["eager"]:
-            raise AssertionError(f"[17] {label}: device busy ms graphed {busy['graphed']} vs "
+            raise AssertionError(f"[{phase}] {label}: device busy ms graphed {busy['graphed']} vs "
                                  f"eager {busy['eager']}")
-        check_profiled_k1(prof["graphed"], T, H_imag, f"[17] {label} profiled replay")
+        check_profiled_k1(prof["graphed"], T, H_imag, f"[{phase}] {label} profiled replay")
         del models, steps, states, kept, batches, captured
         torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t_phase
-    report["graphs"] = out
-    print(f"[17] phase 17 took {out['seconds']:.1f} s")
+    report[key] = out
+    print(f"[{phase}] phase {phase} took {out['seconds']:.1f} s")
     return out
 
 
@@ -2154,10 +2299,11 @@ def finish(torch, report, path_launches, per_step, smi: str, name: str) -> int:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if argv not in ([], ["--learning-only"], ["--tools-only"], ["--graph-only"]):
-        print("usage: chip_smoke.py [--learning-only | --tools-only | --graph-only]  (phases 1 "
-              "and 15 alone; phases 1, 2 at the flagship shapes, and 16 with bench_e2e; "
-              "phases 1 and 17)", file=sys.stderr)
+    if argv not in ([], ["--learning-only"], ["--tools-only"], ["--graph-only"],
+                    ["--dv3-only"]):
+        print("usage: chip_smoke.py [--learning-only | --tools-only | --graph-only | "
+              "--dv3-only]  (phases 1 and 15 alone; phases 1, 2 at the flagship shapes, and 16 "
+              "with bench_e2e; phases 1 and 17; phases 1, 18 and 19)", file=sys.stderr)
         return 2
     import torch
     if not torch.cuda.is_available():
@@ -2212,6 +2358,15 @@ def main(argv=None) -> int:
         report["phase_start"][17] = report["phase_start"].pop(2)
         graph_phase(torch, k1, report, gen, device)
         return finish(torch, report, {}, {}, smi, name)
+    if argv == ["--dv3-only"]:
+        report["phase_start"][18] = report["phase_start"].pop(2)
+        dv3_k1_phase(torch, k1, report, gen, device, peaks, unfused)
+        report["phase_start"][19] = time.perf_counter()
+        graph_phase(torch, k1, report, gen, device, [("atari_dv3_xl", dv3_conf())], "19",
+                    "graphs_dv3")
+        path_launches, per_step = {}, {}
+        dv3_learner_phase(torch, k1, report, path_launches, per_step, device)
+        return finish(torch, report, path_launches, per_step, smi, name)
     if argv == ["--tools-only"]:
         for M, want in ((B, "skinny"), (T * B, "wide")):
             res = check_k1(torch, k1, M, In, H, bf16, want, gen, device, True, peaks, unfused)
@@ -2535,6 +2690,14 @@ def main(argv=None) -> int:
     report["phase_start"][17] = time.perf_counter()
     # 17. The step replayed from CUDA graphs against the eager step.
     graph_phase(torch, k1, report, gen, device)
+
+    report["phase_start"][18] = time.perf_counter()
+    # 18. K1 at DreamerV3 XL's shapes; 19. its step, graphed against eager.
+    dv3_k1_phase(torch, k1, report, gen, device, peaks, unfused)
+    report["phase_start"][19] = time.perf_counter()
+    graph_phase(torch, k1, report, gen, device, [("atari_dv3_xl", dv3_conf())], "19",
+                "graphs_dv3")
+    dv3_learner_phase(torch, k1, report, path_launches, per_step, device)
     return finish(torch, report, path_launches, per_step, smi, name)
 
 

@@ -346,8 +346,9 @@ def create_policy(policy_type: str, env, model_conf, n_envs: int = 1,
     device = resolve_device(device)
     if policy_type == "network":
         from .models.dreamer import Dreamer
-        if model_conf.model != "dreamer":
-            raise ValueError(f"the network policy needs model: dreamer, got {model_conf.model!r}")
+        if model_conf.model not in ("dreamer", "dreamerv3"):
+            raise ValueError(f"the network policy needs model: dreamer or dreamerv3, got "
+                             f"{model_conf.model!r}")
         model = Dreamer(model_conf, device=device)
         preprocess = Preprocessor.from_conf(model_conf)
         if n_envs > 1:

@@ -5,6 +5,11 @@ Counterparts of ``pydreamer_tpu/models/decoders.py``: ``ConvDecoder``
 (219-240), ``DenseNormalDecoder`` with ``vector_head`` (243-277),
 ``DenseCategoricalSupportDecoder`` (280-302) and ``MultiDecoder`` with
 ``extra_metrics``, ``reward_terminal`` and ``image_forward`` (305-428).
+DreamerV3's heads have no JAX counterpart: ``NormConvDecoder`` (a Dense to
+4x4x8d, then transposed convs k4 s2 SAME with channel LayerNorm and SiLU),
+the two-hot symlog reward head ``DenseTwoHotDecoder`` and the continue head
+(``DenseBernoulliDecoder`` with ``predict_continue``: a Bernoulli on
+1 - terminal).
 
 All heads follow the (T,B,I,F) feature layout: the target is broadcast over
 the IWAE axis and per-sample losses are aggregated with -logavgexp over I.
@@ -22,13 +27,16 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .distributions import (Bernoulli, CategoricalSupport, DiagNormal, Normal,
+from ..tracing import span
+from .distributions import (Bernoulli, CategoricalSupport, DiagNormal, Normal, TwoHotSymlog,
                             support_to_categorical)
+from .encoders import channel_norm
 from .functions import flatten_batch, insert_dim, logavgexp, nanmean, unflatten_batch
-from .modules import MLP, Dense, cast_param
+from .modules import MLP, Dense, Norm, cast_param
 
-__all__ = ["ConvDecoder", "CatImageDecoder", "DenseBernoulliDecoder", "DenseNormalDecoder",
-           "DenseCategoricalSupportDecoder", "MultiDecoder"]
+__all__ = ["ConvDecoder", "NormConvDecoder", "CatImageDecoder", "DenseBernoulliDecoder",
+           "DenseNormalDecoder", "DenseCategoricalSupportDecoder", "DenseTwoHotDecoder",
+           "MultiDecoder"]
 
 TRANSPOSE_IMPLS = ("auto", "xla", "subpixel", "fused")
 
@@ -99,6 +107,55 @@ class ConvDecoder(nn.Module):
         return loss_tbi, loss_tb, decoded.mean(2)
 
 
+class NormConvDecoder(nn.Module):
+    """DreamerV3 CNN decoder: Dense(8d*4*4) (with bias, no activation),
+    reshaped (4, 4, 8d), then 4x ConvTranspose k4 s2 SAME (4 -> 64), channels
+    8d -> 4d -> 2d -> d -> C, with channel LayerNorm and SiLU on all but the
+    last, which alone has a bias. The output is the mean image less 0.5, in
+    the space of ``prepare_obs``'s images (the source adds 0.5 and compares
+    with image / 255: the same squared error). The activations are held
+    channels-last, as in ``NormConvEncoder``."""
+
+    def __init__(self, in_dim: int, out_channels: int = 3, cnn_depth: int = 96,
+                 image_size: int = 64, dtype=torch.float32):
+        super().__init__()
+        self.compute_dtype = dtype
+        d = cnn_depth
+        self.minres, self.depth = image_size // 16, 8 * d
+        self.Dense_0 = Dense(in_dim, self.minres ** 2 * 8 * d, dtype=dtype)
+        chans = (8 * d, 4 * d, 2 * d, d, out_channels)
+        for i in range(4):
+            last = i == 3
+            deconv = nn.ConvTranspose2d(chans[i], chans[i + 1], 4, stride=2, padding=1, bias=last)
+            nn.init.xavier_uniform_(deconv.weight)
+            self.add_module(f"deconv_{i}", deconv)
+            if last:
+                nn.init.zeros_(deconv.bias)
+            else:
+                self.add_module(f"Norm_{i}", Norm(chans[i + 1], dtype=dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, bd = flatten_batch(x, 1)
+        dt = self.compute_dtype
+        x = self.Dense_0(x.to(dt)).reshape(x.shape[0], self.minres, self.minres, self.depth)
+        x = x.permute(0, 3, 1, 2)
+        for i in range(4):
+            deconv = getattr(self, f"deconv_{i}")
+            bias = None if deconv.bias is None else cast_param(deconv.bias, dt)
+            x = F.conv_transpose2d(x, cast_param(deconv.weight, dt), bias, stride=2, padding=1)
+            if i < 3:
+                x = F.silu(channel_norm(getattr(self, f"Norm_{i}"), x))
+        x = x.permute(0, 2, 3, 1).float()
+        return unflatten_batch(x, bd)  # (...,H,W,C)
+
+    @staticmethod
+    def loss(output: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+        """Sum of squares over (H,W,C): DreamerV3's ``mse`` image distribution."""
+        return (output.float() - target.float()).square().sum((-1, -2, -3))
+
+    training_step = ConvDecoder.training_step
+
+
 class CatImageDecoder(MLP):
     """MLP decoder for categorical images, class axis last: (...,H,W,K) logits."""
 
@@ -139,22 +196,67 @@ class CatImageDecoder(MLP):
 
 
 class DenseBernoulliDecoder(nn.Module):
-    """Terminal-flag head: MLP -> Bernoulli(logits)."""
+    """Terminal-flag head: MLP -> Bernoulli(logits). With ``predict_continue``
+    the Bernoulli is of 1 - terminal (DreamerV3's continue head); the target
+    handed in stays the terminal flag."""
 
     def __init__(self, in_dim: int, hidden_dim: int = 400, hidden_layers: int = 2,
-                 layer_norm: bool = True, dtype=torch.float32):
+                 layer_norm: bool = True, dtype=torch.float32, predict_continue: bool = False,
+                 act: str = "elu", hidden_bias: bool = True):
         super().__init__()
-        self.model = MLP(in_dim, 1, hidden_dim, hidden_layers, layer_norm, dtype=dtype)
+        self.predict_continue = predict_continue
+        self.model = MLP(in_dim, 1, hidden_dim, hidden_layers, layer_norm, dtype, act, hidden_bias)
 
     def forward(self, features: torch.Tensor) -> Bernoulli:
         return Bernoulli(self.model(features))
 
+    def terminal(self, features: torch.Tensor) -> torch.Tensor:
+        """The dream's terminal flags: the probability of a terminal, or, for
+        the continue head, 1 - its mode (DreamerV3 takes the mode)."""
+        if self.predict_continue:
+            return (self.model(features).float() <= 0).float()
+        return self(features).mean
+
     def training_step(self, features, target):
         I = features.shape[2]
         p = self(features)
+        if self.predict_continue:
+            target = 1.0 - target
         loss_tbi = -p.log_prob(insert_dim(target, 2, I))
         loss_tb = -logavgexp(-loss_tbi, 2)
         return loss_tbi, loss_tb, p.mean.mean(2)
+
+
+class DenseTwoHotDecoder(nn.Module):
+    """DreamerV3's reward head: MLP -> ``TwoHotSymlog`` over ``bins`` bins.
+    Its two-hot work (the target's encoding, the log-softmax, the mean) runs
+    in the ``pd.twohot`` span."""
+
+    def __init__(self, in_dim: int, bins: int = 255, hidden_dim: int = 1024,
+                 hidden_layers: int = 5, layer_norm: bool = True, dtype=torch.float32,
+                 act: str = "silu", hidden_bias: bool = False):
+        super().__init__()
+        self.model = MLP(in_dim, bins, hidden_dim, hidden_layers, layer_norm, dtype, act,
+                         hidden_bias)
+        self.register_buffer("bins", TwoHotSymlog.make_bins(bins), persistent=False)
+
+    def forward(self, features: torch.Tensor) -> TwoHotSymlog:
+        return TwoHotSymlog(self.model(features), self.bins)
+
+    def mean(self, features: torch.Tensor) -> torch.Tensor:
+        logits = self.model(features)
+        with span("pd.twohot"):
+            return TwoHotSymlog(logits, self.bins).mean
+
+    def training_step(self, features, target):
+        I = features.shape[2]
+        logits = self.model(features)
+        with span("pd.twohot"):
+            p = TwoHotSymlog(logits, self.bins)
+            loss_tbi = -p.log_prob(insert_dim(target, 2, I))
+            mean = p.mean
+        loss_tb = -logavgexp(-loss_tbi, 2)
+        return loss_tbi, loss_tb, mean.mean(2)
 
 
 class DenseNormalDecoder(nn.Module):
@@ -225,9 +327,14 @@ class MultiDecoder(nn.Module):
                  reward_decoder_categorical, vecobs_size: int, image_weight: float = 1.0,
                  vecobs_weight: float = 1.0, reward_weight: float = 1.0,
                  terminal_weight: float = 1.0, transpose_impl: str = "auto",
-                 layer_norm: bool = True, dtype=torch.float32):
+                 layer_norm: bool = True, dtype=torch.float32, cnn_norm: bool = False,
+                 twohot_bins: int = 0, predict_continue: bool = False, mlp_units: int = 400,
+                 act: str = "elu", hidden_bias: bool = True):
         super().__init__()
-        if image_decoder == "cnn":
+        if image_decoder == "cnn" and cnn_norm:
+            self.image = NormConvDecoder(features_dim, image_channels, cnn_depth, image_size,
+                                         dtype=dtype)
+        elif image_decoder == "cnn":
             self.image = ConvDecoder(features_dim, image_channels, cnn_depth,
                                      transpose_impl=transpose_impl, dtype=dtype)
         elif image_decoder == "dense":
@@ -238,15 +345,21 @@ class MultiDecoder(nn.Module):
             self.image = None
         else:
             raise ValueError(f"unknown image_decoder {image_decoder!r}")
-        if reward_decoder_categorical:
+        if twohot_bins:
+            self.reward = DenseTwoHotDecoder(features_dim, twohot_bins, mlp_units,
+                                             reward_decoder_layers, layer_norm, dtype, act,
+                                             hidden_bias)
+        elif reward_decoder_categorical:
             self.reward = DenseCategoricalSupportDecoder(
-                features_dim, tuple(reward_decoder_categorical),
+                features_dim, tuple(reward_decoder_categorical), hidden_dim=mlp_units,
                 hidden_layers=reward_decoder_layers, layer_norm=layer_norm, dtype=dtype)
         else:
-            self.reward = DenseNormalDecoder(features_dim, hidden_layers=reward_decoder_layers,
+            self.reward = DenseNormalDecoder(features_dim, hidden_dim=mlp_units,
+                                             hidden_layers=reward_decoder_layers,
                                              layer_norm=layer_norm, dtype=dtype)
-        self.terminal = DenseBernoulliDecoder(features_dim, hidden_layers=terminal_decoder_layers,
-                                              layer_norm=layer_norm, dtype=dtype)
+        self.terminal = DenseBernoulliDecoder(features_dim, mlp_units, terminal_decoder_layers,
+                                              layer_norm, dtype, predict_continue, act,
+                                              hidden_bias)
         self.vecobs = (DenseNormalDecoder(features_dim, vecobs_size, hidden_layers=4,
                                           layer_norm=layer_norm, vector_head=True, dtype=dtype)
                        if vecobs_size else None)
@@ -311,8 +424,10 @@ class MultiDecoder(nn.Module):
         return loss_reconstr, metrics, tensors
 
     def reward_terminal(self, features):
-        """Reward/terminal means for imagination rollouts (dream)."""
-        return self.reward(features).mean, self.terminal(features).mean
+        """Reward means and terminal flags for imagination rollouts (dream)."""
+        reward = (self.reward.mean(features) if isinstance(self.reward, DenseTwoHotDecoder)
+                  else self.reward(features).mean)
+        return reward, self.terminal.terminal(features)
 
     def image_forward(self, features):
         """Raw image head output (dream-log decoding)."""

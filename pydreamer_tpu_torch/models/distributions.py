@@ -5,7 +5,9 @@ Counterparts of ``pydreamer_tpu/models/distributions.py``:
 ``DiagNormal``/``Normal`` (127-192), ``Bernoulli`` (195-225),
 ``CategoricalSupport`` (228-272), ``TanhNormal`` (275-317), ``TruncNormal``
 (345-427) and the constructors ``diag_normal``, ``normal_tanh``, ``tanh_normal``
-and ``trunc_normal`` (324-342, 430-434). As there, every distribution
+and ``trunc_normal`` (324-342, 430-434). DreamerV3's (Hafner et al. 2023,
+arXiv:2301.04104) add ``unimix`` to ``OneHotCategorical`` and the two-hot
+symlog distribution ``TwoHotSymlog``. As there, every distribution
 parameter is promoted to float32 whatever the compute dtype, because
 softmax/KL in bfloat16 loses the precision the KL-balancing gradients depend
 on.
@@ -27,7 +29,8 @@ import torch.nn.functional as F
 
 __all__ = ["OneHotCategorical", "DiagNormal", "Normal", "Bernoulli", "CategoricalSupport",
            "TanhNormal", "TruncNormal", "diag_normal", "normal_tanh", "tanh_normal",
-           "trunc_normal", "support_to_categorical", "gumbel_from_uniform"]
+           "trunc_normal", "support_to_categorical", "gumbel_from_uniform", "TwoHotSymlog",
+           "symlog", "symexp", "twohot", "unimix_logits"]
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 _SQRT2 = math.sqrt(2.0)
@@ -50,18 +53,29 @@ def _sum_events(x: torch.Tensor, event_dims: int) -> torch.Tensor:
     return x
 
 
+def unimix_logits(logits: torch.Tensor, unimix: float) -> torch.Tensor:
+    """Normalized log-probabilities of ``(1 - unimix) * softmax + unimix / K``
+    over the last axis (DreamerV3's uniform mix)."""
+    probs = torch.softmax(logits, -1)
+    return torch.log((1.0 - unimix) * probs + unimix / logits.shape[-1])
+
+
 class OneHotCategorical:
     """(Batched, optionally factorized) one-hot categorical over the last axis.
 
     With ``event_dims=1``, logits shaped (..., S, K) and log_prob/entropy/kl
-    sum over S. ``rsample_noise`` is the straight-through estimator.
+    sum over S. ``rsample_noise`` is the straight-through estimator. With
+    ``unimix`` the probabilities are mixed with the uniform (DreamerV3).
     """
 
     NOISE = "gumbel"
 
-    def __init__(self, logits: torch.Tensor, event_dims: int = 0):
+    def __init__(self, logits: torch.Tensor, event_dims: int = 0, unimix: float = 0.0):
         logits = logits.float()
-        self.logits = logits - torch.logsumexp(logits, -1, keepdim=True)
+        if unimix:
+            self.logits = unimix_logits(logits, unimix)
+        else:
+            self.logits = logits - torch.logsumexp(logits, -1, keepdim=True)
         self.event_dims = event_dims
 
     @property
@@ -282,6 +296,54 @@ def tanh_normal(x: torch.Tensor) -> TanhNormal:
     """tanh(Normal(5 tanh(m/5), softplus(s) + 0.1))."""
     mean, std = x.float().chunk(2, -1)
     return TanhNormal(5.0 * torch.tanh(mean / 5.0), F.softplus(std) + 0.1)
+
+
+def symlog(x: torch.Tensor) -> torch.Tensor:
+    return torch.sign(x) * torch.log1p(x.abs())
+
+
+def symexp(x: torch.Tensor) -> torch.Tensor:
+    return torch.sign(x) * torch.expm1(x.abs())
+
+
+def twohot(x: torch.Tensor, bins: torch.Tensor) -> torch.Tensor:
+    """(..., K) weights on the two bins around each ``x`` (already in the
+    bins' space), by the distance to each; a value at or past an end bin
+    puts all its weight there (DreamerV3's ``DiscDist.log_prob``)."""
+    K = bins.shape[0]
+    below = ((bins <= x.unsqueeze(-1)).sum(-1) - 1).clamp(0, K - 1)
+    above = (K - (bins > x.unsqueeze(-1)).sum(-1)).clamp(0, K - 1)
+    equal = below == above
+    to_below = torch.where(equal, torch.ones_like(x), (bins[below] - x).abs())
+    to_above = torch.where(equal, torch.ones_like(x), (bins[above] - x).abs())
+    total = to_below + to_above
+    return (F.one_hot(below, K) * (to_above / total).unsqueeze(-1)
+            + F.one_hot(above, K) * (to_below / total).unsqueeze(-1))
+
+
+class TwoHotSymlog:
+    """DreamerV3's reward and critic head: a categorical over ``bins``
+    (``linspace(-20, 20, K)``, K = ``BINS`` in DreamerV3) in symlog space. ``mean`` is
+    ``symexp(sum(probs * bins))``; ``log_prob(x)`` is the cross-entropy
+    against the two-hot of ``symlog(x)``."""
+
+    BINS, LOW, HIGH = 255, -20.0, 20.0
+
+    def __init__(self, logits: torch.Tensor, bins: torch.Tensor):
+        logits = logits.float()
+        self.logits = logits - torch.logsumexp(logits, -1, keepdim=True)
+        self.bins = bins
+
+    @staticmethod
+    def make_bins(n: int, device=None) -> torch.Tensor:
+        return torch.linspace(TwoHotSymlog.LOW, TwoHotSymlog.HIGH, n, device=device)
+
+    @property
+    def mean(self) -> torch.Tensor:
+        return symexp((self.logits.exp() * self.bins).sum(-1))
+
+    def log_prob(self, x: torch.Tensor) -> torch.Tensor:
+        return (twohot(symlog(x.float()), self.bins) * self.logits).sum(-1)
 
 
 def trunc_normal(x: torch.Tensor, min_std: float = 0.1) -> TruncNormal:

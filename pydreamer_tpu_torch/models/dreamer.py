@@ -20,6 +20,14 @@ Gradient routing: each loss touches only its own parameters, so one
     so it runs under ``torch.no_grad()``; with ``dynamics`` it carries the
     gradient through the frozen world model (K1 included) into the actor.
   * loss_critic: critic only
+
+``model: dreamerv3`` builds DreamerV3 (Hafner et al. 2023, arXiv:2301.04104)
+from the same classes, with the options fixed here at construction
+(``dreamerv3_options``): SiLU, no bias before a LayerNorm, the 1% uniform mix
+of the latents and the actor, the learned initial state, the LayerNorm conv
+encoder and decoder, the two-hot symlog reward head and critic, the continue
+head, the KL of each side clipped below at ``KL_FREE`` nats, and the
+actor-critic's DreamerV3 objective (``models/a2c.py``).
 """
 
 from __future__ import annotations
@@ -34,13 +42,31 @@ from ..device import compute_dtype, resolve_device
 from ..tracing import span
 from .a2c import ActorCritic, Critic
 from .decoders import MultiDecoder
+from .distributions import TwoHotSymlog
 from .encoders import MultiEncoder
-from .functions import logavgexp, unflatten_batch
+from .functions import expand_iwae, logavgexp, unflatten_batch
 from .probes import make_probe
 from .rssm import (RSSMCore, feature_replace_z, init_state, to_feature, z_noise_kind,
                    z_noise_shape)
 
-__all__ = ["Dreamer", "WorldModel", "prepare_obs", "frozen"]
+__all__ = ["Dreamer", "WorldModel", "prepare_obs", "frozen", "dreamerv3_options",
+           "free_bits_kl", "UNIMIX", "KL_FREE", "KL_DYN", "KL_REP"]
+
+# DreamerV3's published constants (configs.yaml of its code's first release):
+# the uniform share mixed into the latents' and the actor's probabilities, the
+# free nats of each KL side and the weights of the two sides.
+UNIMIX = 0.01
+KL_FREE, KL_DYN, KL_REP = 1.0, 0.5, 0.1
+
+
+def dreamerv3_options(conf) -> Dict:
+    """The construction-time options that set a module to DreamerV3's
+    (``model: dreamerv3``) or leave it DreamerV2's (``model: dreamer``)."""
+    if conf.model == "dreamerv3":
+        return dict(v3=True, act="silu", hidden_bias=False, unimix=UNIMIX,
+                    twohot_bins=TwoHotSymlog.BINS, initial="learned")
+    return dict(v3=False, act="elu", hidden_bias=True, unimix=0.0, twohot_bins=0,
+                initial="zeros")
 
 
 def prepare_obs(obs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -66,23 +92,38 @@ def frozen(module: nn.Module):
             p.requires_grad_(flag)
 
 
+def free_bits_kl(zdistr, post, prior):
+    """DreamerV3's KL loss from the posterior's and the prior's statistics:
+    dyn = max(KL_FREE, KL[sg(post) || prior]) trains the prior, rep =
+    max(KL_FREE, KL[post || sg(prior)]) the posterior; -> (KL_DYN dyn + KL_REP
+    rep, dyn, rep). Below ``KL_FREE`` nats a side takes no gradient."""
+    dyn = zdistr(post.detach()).kl_to(zdistr(prior)).clamp(min=KL_FREE)
+    rep = zdistr(post).kl_to(zdistr(prior.detach())).clamp(min=KL_FREE)
+    return KL_DYN * dyn + KL_REP * rep, dyn, rep
+
+
 class WorldModel(nn.Module):
     """Encoder -> RSSM -> multi-head decoder with KL-balanced ELBO."""
 
     def __init__(self, conf, dtype: torch.dtype):
         super().__init__()
+        v3 = dreamerv3_options(conf)
         self.deter_dim = conf.deter_dim
         self.stoch_dim = conf.stoch_dim
         self.stoch_discrete = conf.stoch_discrete
-        self.kl_weight = conf.kl_weight
+        self.kl_weight = 1.0 if v3["v3"] else conf.kl_weight
         self.kl_balance = None if conf.kl_balance == 0.5 else conf.kl_balance
+        self.free_bits = v3["v3"]  # DreamerV3's KL (free_bits_kl)
         self.aux_critic_weight = conf.aux_critic_weight
         self.features_dim = conf.deter_dim + conf.stoch_dim * (conf.stoch_discrete or 1)
+        if v3["v3"] and conf.aux_critic:
+            raise ValueError("model: dreamerv3 has no auxiliary critic")
 
         self.encoder = MultiEncoder(
             conf.image_encoder, conf.image_size, conf.image_channels, conf.cnn_depth,
             conf.image_encoder_layers, conf.vecobs_size, conf.reward_input,
-            conv_impl=conf.get("conv_impl", "auto"), layer_norm=conf.layer_norm, dtype=dtype)
+            conv_impl=conf.get("conv_impl", "auto"), layer_norm=conf.layer_norm, dtype=dtype,
+            cnn_norm=v3["v3"])
         self.decoder = MultiDecoder(
             self.features_dim, conf.image_decoder, conf.image_size, conf.image_channels,
             conf.cnn_depth, conf.image_decoder_layers, conf.image_decoder_min_prob,
@@ -91,11 +132,17 @@ class WorldModel(nn.Module):
             image_weight=conf.image_weight, vecobs_weight=conf.vecobs_weight,
             reward_weight=conf.reward_weight, terminal_weight=conf.terminal_weight,
             transpose_impl=conf.get("conv_transpose_impl", "auto"),
-            layer_norm=conf.layer_norm, dtype=dtype)
+            layer_norm=conf.layer_norm, dtype=dtype, cnn_norm=v3["v3"],
+            twohot_bins=v3["twohot_bins"], predict_continue=v3["v3"],
+            mlp_units=conf.get("mlp_units", 400), act=v3["act"], hidden_bias=v3["hidden_bias"])
         self.core = RSSMCore(
             self.encoder.out_dim, conf.action_dim, conf.deter_dim, conf.stoch_dim,
             conf.stoch_discrete, conf.hidden_dim, conf.gru_layers, conf.gru_type,
-            conf.layer_norm, dtype)
+            conf.layer_norm, dtype, act=v3["act"], unimix=v3["unimix"],
+            norm_bias=v3["hidden_bias"], initial=v3["initial"])
+        if v3["twohot_bins"]:  # DreamerV3 starts the reward head's output at zero
+            nn.init.zeros_(self.decoder.reward.model.get_submodule(
+                f"Dense_{conf.reward_decoder_layers}").weight)
         # The auxiliary critic on real data: critic only, its loss reaches the
         # world model's features (critic_features_grad).
         self.ac_aux = (Critic(self.features_dim, layer_norm=conf.layer_norm, gamma=conf.gamma_aux,
@@ -144,7 +191,12 @@ class WorldModel(nn.Module):
         dprior = zdistr(prior)
         dpost = zdistr(post)
         loss_kl_exact = dpost.kl_to(dprior)  # (T,B,I)
-        if I > 1:
+        if self.free_bits:
+            if I > 1:
+                raise ValueError("model: dreamerv3 takes iwae_samples 1")
+            loss_kl, loss_dyn, loss_rep = free_bits_kl(zdistr, post, prior)
+            metrics.update(loss_dyn=loss_dyn.detach().mean(), loss_rep=loss_rep.detach().mean())
+        elif I > 1:
             z = (post_samples.reshape(post.shape[:-1] + (self.stoch_dim, self.stoch_discrete))
                  if self.stoch_discrete else post_samples)
             loss_kl = dpost.log_prob(z) - dprior.log_prob(z)
@@ -213,17 +265,31 @@ class Dreamer(nn.Module):
         self.imag_horizon = conf.imag_horizon
         self.probe_gradients = conf.probe_gradients
         self.features_dim = conf.deter_dim + conf.stoch_dim * (conf.stoch_discrete or 1)
+        v3 = dreamerv3_options(conf)
+        self.v3 = v3["v3"]
 
         self.wm = WorldModel(conf, self.dtype)
         self.ac = ActorCritic(
-            self.features_dim, conf.action_dim, layer_norm=conf.layer_norm,
+            self.features_dim, conf.action_dim, hidden_dim=conf.get("mlp_units", 400),
+            hidden_layers=conf.get("actor_critic_layers", 4), layer_norm=conf.layer_norm,
             gamma=conf.gamma, lambda_gae=conf.lambda_gae, entropy_weight=conf.entropy,
             actor_grad=conf.actor_grad, actor_dist=conf.actor_dist,
-            gae_impl=conf.get("gae_impl", "scan"), dtype=self.dtype)
+            gae_impl=conf.get("gae_impl", "scan"), dtype=self.dtype, act=v3["act"],
+            hidden_bias=v3["hidden_bias"], twohot_bins=v3["twohot_bins"], unimix=v3["unimix"],
+            dreamerv3=self.v3)
+        if self.v3:  # DreamerV3 starts the critic's output at zero, the slow critic a copy
+            nn.init.zeros_(self.ac.critic.get_submodule(f"Dense_{self.ac.critic.hidden_layers}")
+                           .weight)
+            self.ac.critic_target.load_state_dict(self.ac.critic.state_dict())
         self.probe = make_probe(conf, self.features_dim, self.dtype)
         self.to(self.device)
 
     def init_state(self, batch_size: int):
+        """The TBTT state a run starts from: zeros, or the learned initial
+        state (``initial: learned``), without a gradient."""
+        if self.wm.core.cell.initial is not None:
+            with torch.no_grad():
+                return tuple(s.contiguous() for s in self.wm.core.cell.initial_state(batch_size))
         return init_state(batch_size, self.conf.deter_dim, self.conf.stoch_dim,
                           self.conf.stoch_discrete, device=self.device)
 
@@ -318,6 +384,9 @@ class Dreamer(nn.Module):
             dynamics = self.ac.actor_grad == "dynamics"
             with torch.set_grad_enabled(dynamics and torch.is_grad_enabled()):
                 dream = self.dream(in_state_dream, H, noise, dynamics)
+                if self.v3:  # the first continue flag is the data's
+                    start = expand_iwae(obs["terminal"], I).reshape(1, -1).float()
+                    dream = (*dream[:3], torch.cat([start, dream[3][1:]]))
         with span("pd.actor_critic"):
             (loss_actor, loss_critic), metrics_ac, tensors_ac = self.ac.training_step(*dream)
             metrics.update(metrics_ac)
@@ -332,7 +401,7 @@ class Dreamer(nn.Module):
                 in_state_log = tuple(s.detach()[0, :, 0] for s in states)
                 f_d, a_d, r_d, t_d = self.dream(in_state_log, T - 1, noise, prefix="log")
                 image_dream = self.wm.decoder.image_forward(f_d)
-                _, _, tens_ac = self.ac.training_step(f_d, a_d, r_d, t_d)
+                _, _, tens_ac = self.ac.training_step(f_d, a_d, r_d, t_d, update_stats=False)
             dream_tensors = dict(action_pred=torch.cat([obs["action"][:1].float(), a_d]),
                                  reward_pred=r_d, terminal_pred=t_d, image_pred=image_dream,
                                  **tens_ac)

@@ -2,7 +2,9 @@
 
 Counterparts of ``pydreamer_tpu/models/encoders.py``: ``ConvEncoder`` (4x
 Conv k4 s2 VALID + ELU, 90-116), ``DenseEncoder`` (119-142) and
-``MultiEncoder`` with the vecobs branch (145-208). Images are
+``MultiEncoder`` with the vecobs branch (145-208). ``NormConvEncoder`` is
+DreamerV3's (no JAX counterpart): 4x [Conv k4 s2 SAME, channel LayerNorm,
+SiLU] down to 4x4. Images are
 (T,B,H,W,C) at the boundary, as in the JAX package; inside, the convolutions
 run NCHW and the last feature map is flattened in (H,W,C) order so that the
 embedding matches the JAX layout element for element.
@@ -19,9 +21,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .functions import flatten_batch, unflatten_batch
-from .modules import MLP, cast_param
+from .modules import MLP, Norm, cast_param
 
-__all__ = ["ConvEncoder", "DenseEncoder", "MultiEncoder", "ConvS2"]
+__all__ = ["ConvEncoder", "NormConvEncoder", "DenseEncoder", "MultiEncoder", "ConvS2",
+           "channel_norm"]
 
 CONV_IMPLS = ("auto", "xla", "s2d")
 
@@ -70,6 +73,44 @@ class ConvEncoder(nn.Module):
         return unflatten_batch(x, bd)
 
 
+def channel_norm(norm: Norm, x: torch.Tensor) -> torch.Tensor:
+    """``norm`` over the channels of an NCHW tensor held channels-last (the
+    NHWC view is contiguous, so no copy); the result is held alike."""
+    return norm(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+
+
+class NormConvEncoder(nn.Module):
+    """DreamerV3 CNN encoder: 4x [Conv k4 s2 SAME (no bias), channel
+    LayerNorm, SiLU], flatten. For 64x64 input: 64->32->16->8->4 spatial,
+    channels d, 2d, 4d, 8d, so out_dim = 4*4*8d = 128d. The activations are
+    held channels-last, so each norm reads its pixels' channels in place."""
+
+    def __init__(self, in_channels: int = 3, cnn_depth: int = 96, image_size: int = 64,
+                 dtype=torch.float32):
+        super().__init__()
+        self.compute_dtype = dtype
+        d = cnn_depth
+        chans = (in_channels, d, d * 2, d * 4, d * 8)
+        for i in range(4):
+            conv = nn.Conv2d(chans[i], chans[i + 1], 4, stride=2, padding=1, bias=False)
+            nn.init.xavier_uniform_(conv.weight)
+            self.add_module(f"conv_{i}", conv)
+            self.add_module(f"Norm_{i}", Norm(chans[i + 1], dtype=dtype))
+        self.out_dim = (image_size // 16) ** 2 * d * 8
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # x: (..., H, W, C) -> (..., (H/16)*(W/16)*8d), flattened in (H, W, C) order
+        x, bd = flatten_batch(x, 3)
+        dt = self.compute_dtype
+        x = x.to(dt).permute(0, 3, 1, 2)
+        for i in range(4):
+            conv = getattr(self, f"conv_{i}")
+            x = F.conv2d(x, cast_param(conv.weight, dt), None, stride=2, padding=1)
+            x = F.silu(channel_norm(getattr(self, f"Norm_{i}"), x))
+        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+        return unflatten_batch(x, bd)
+
+
 class DenseEncoder(MLP):
     """Flatten (H,W,C) -> MLP -> ELU (small categorical images)."""
 
@@ -86,19 +127,23 @@ class DenseEncoder(MLP):
 class MultiEncoder(nn.Module):
     """Image (``cnn`` or ``dense``) and vecobs encoders, embeddings
     concatenated; with ``reward_input`` the reward and terminal are appended
-    to the image as two constant planes."""
+    to the image as two constant planes. ``cnn_norm`` takes DreamerV3's
+    ``NormConvEncoder`` for ``cnn``."""
 
     def __init__(self, image_encoder, image_size: int, image_channels: int,
                  cnn_depth: int, image_encoder_layers: int, vecobs_size: int,
                  reward_input: bool, conv_impl: str = "auto", layer_norm: bool = True,
-                 dtype=torch.float32):
+                 dtype=torch.float32, cnn_norm: bool = False):
         super().__init__()
         self.reward_input = reward_input
         self.image_encoder = image_encoder
         channels = image_channels + (2 if reward_input else 0)
         self.out_dim = 0
         # Named as the JAX param tree names the auto-named flax submodules.
-        if image_encoder == "cnn":
+        if image_encoder == "cnn" and cnn_norm:
+            self.ConvEncoder_0 = NormConvEncoder(channels, cnn_depth, image_size, dtype=dtype)
+            self.out_dim += self.ConvEncoder_0.out_dim
+        elif image_encoder == "cnn":
             self.ConvEncoder_0 = ConvEncoder(channels, cnn_depth, conv_impl=conv_impl, dtype=dtype)
             self.out_dim += self.ConvEncoder_0.out_dim
         elif image_encoder == "dense":

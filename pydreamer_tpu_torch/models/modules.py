@@ -21,9 +21,11 @@ import torch.nn.functional as F
 
 from ..tracing import COUNTERS
 
-__all__ = ["Dense", "Norm", "MLP", "layer_norm", "cast_param"]
+__all__ = ["Dense", "Norm", "MLP", "layer_norm", "cast_param", "ACTIVATIONS"]
 
 LN_EPS = 1e-3
+# The hidden activation: DreamerV2's ELU, DreamerV3's SiLU.
+ACTIVATIONS = {"elu": F.elu, "silu": F.silu}
 
 
 def cast_param(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -92,22 +94,26 @@ class Norm(nn.Module):
 
 
 class MLP(nn.Module):
-    """[Dense -> LayerNorm -> ELU] x hidden_layers -> Dense(out).
+    """[Dense -> LayerNorm -> act] x hidden_layers -> Dense(out).
 
     Applies over the last axis of any-rank input. When ``out_dim == 1`` the
-    trailing singleton axis is squeezed.
+    trailing singleton axis is squeezed. ``act`` names the activation
+    (``ACTIVATIONS``); ``hidden_bias`` False drops the bias of the hidden
+    Dense layers, which the LayerNorm's offset follows (DreamerV3).
     """
 
     def __init__(self, in_dim: int, out_dim: int, hidden_dim: int = 400,
                  hidden_layers: int = 4, layer_norm: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, act: str = "elu",
+                 hidden_bias: bool = True):
         super().__init__()
         self.out_dim = out_dim
         self.hidden_layers = hidden_layers
         self.compute_dtype = dtype
+        self.act = ACTIVATIONS[act]
         dims = [in_dim] + [hidden_dim] * hidden_layers
         for i in range(hidden_layers):
-            self.add_module(f"Dense_{i}", Dense(dims[i], hidden_dim, dtype=dtype))
+            self.add_module(f"Dense_{i}", Dense(dims[i], hidden_dim, bias=hidden_bias, dtype=dtype))
             self.add_module(f"Norm_{i}", Norm(hidden_dim, layer_norm, dtype=dtype))
         self.add_module(f"Dense_{hidden_layers}", Dense(dims[-1], out_dim, dtype=dtype))
 
@@ -115,7 +121,7 @@ class MLP(nn.Module):
         x = x.to(self.compute_dtype)
         for i in range(self.hidden_layers):
             x = getattr(self, f"Dense_{i}")(x)
-            x = F.elu(getattr(self, f"Norm_{i}")(x))
+            x = self.act(getattr(self, f"Norm_{i}")(x))
         x = getattr(self, f"Dense_{self.hidden_layers}")(x)
         if self.out_dim == 1:
             x = x.squeeze(-1)

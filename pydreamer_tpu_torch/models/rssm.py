@@ -9,7 +9,14 @@ Latent layout: state ``(h, z)`` with h = deterministic GRU state (B,D) and
 z = stochastic sample (B, S*K). Features = concat(h, z).
 
 Reset handling: ``reset[t]`` zeroes the *incoming* state at step t
-(rssm.py:108-116).
+(rssm.py:108-116). With ``initial: learned`` (DreamerV3) it replaces the
+incoming state by the learned initial state, h0 = tanh(w0) and z0 the mode
+of the prior at h0, and zeroes the incoming action.
+
+DreamerV3's options, all fixed at construction (``act``, ``unimix``,
+``norm_bias``, ``initial``): SiLU for ELU, the latents' probabilities mixed
+1% with the uniform, no bias on the Dense layers that a LayerNorm follows,
+the learned initial state.
 
 Sampling noise comes in as a tensor (standard gumbel for discrete latents,
 standard normal otherwise), never as a key: the posterior loop takes the
@@ -26,11 +33,13 @@ import torch.nn.functional as F
 
 from .distributions import DiagNormal, OneHotCategorical, diag_normal
 from .functions import expand_iwae
-from .modules import Dense, Norm
+from .modules import ACTIVATIONS, Dense, Norm, layer_norm
 from .rnn import GRUCellStack
 
 __all__ = ["RSSMCell", "RSSMCore", "init_state", "to_feature", "feature_replace_z",
-           "z_noise_shape", "z_noise_kind"]
+           "z_noise_shape", "z_noise_kind", "INITIAL_STATES"]
+
+INITIAL_STATES = ("zeros", "learned")
 
 State = Tuple[torch.Tensor, torch.Tensor]  # (h: (B,D), z: (B,S*K))
 
@@ -71,61 +80,92 @@ class RSSMCell(nn.Module):
 
     def __init__(self, embed_dim: int, action_dim: int, deter_dim: int, stoch_dim: int,
                  stoch_discrete: int, hidden_dim: int, gru_layers: int = 1,
-                 gru_type: str = "gru", layer_norm: bool = True, dtype=torch.float32):
+                 gru_type: str = "gru", layer_norm: bool = True, dtype=torch.float32,
+                 act: str = "elu", unimix: float = 0.0, norm_bias: bool = True,
+                 initial: str = "zeros"):
         super().__init__()
+        if initial not in INITIAL_STATES:
+            raise ValueError(f"unknown initial state {initial!r}; options: {INITIAL_STATES}")
+        if initial == "learned" and not stoch_discrete:
+            raise ValueError("the learned initial state takes discrete latents")
         self.stoch_dim = stoch_dim
         self.stoch_discrete = stoch_discrete
         self.compute_dtype = dtype
+        self.act = ACTIVATIONS[act]
+        self.unimix = unimix
         z_dim = stoch_dim * (stoch_discrete or 1)
         out_stoch = stoch_dim * (stoch_discrete or 2)
-        self.z_mlp = Dense(z_dim, hidden_dim, dtype=dtype)
+        self.z_mlp = Dense(z_dim, hidden_dim, bias=norm_bias, dtype=dtype)
         self.a_mlp = Dense(action_dim, hidden_dim, bias=False, dtype=dtype)
         self.in_norm = Norm(hidden_dim, layer_norm, dtype=dtype)
         self.gru = GRUCellStack(hidden_dim, deter_dim, gru_layers, gru_type, dtype=dtype)
-        self.prior_mlp_h = Dense(deter_dim, hidden_dim, dtype=dtype)
+        self.prior_mlp_h = Dense(deter_dim, hidden_dim, bias=norm_bias, dtype=dtype)
         self.prior_norm = Norm(hidden_dim, layer_norm, dtype=dtype)
         self.prior_mlp = Dense(hidden_dim, out_stoch, dtype=dtype)
-        self.post_mlp_h = Dense(deter_dim, hidden_dim, dtype=dtype)
+        self.post_mlp_h = Dense(deter_dim, hidden_dim, bias=norm_bias, dtype=dtype)
         self.post_mlp_e = Dense(embed_dim, hidden_dim, bias=False, dtype=dtype)
         self.post_norm = Norm(hidden_dim, layer_norm, dtype=dtype)
         self.post_mlp = Dense(hidden_dim, out_stoch, dtype=dtype)
+        self.initial = nn.Parameter(torch.zeros(deter_dim)) if initial == "learned" else None
 
     # -- pieces -----------------------------------------------------------
 
-    def _gru_step(self, action, in_state: State, reset_mask) -> torch.Tensor:
+    def initial_state(self, batch_size: int) -> State:
+        """The learned initial state of ``batch_size`` rows: h0 = tanh(w0) and
+        z0 the mode of the prior at h0 (no gradient through the mode). The
+        mode's one row is computed in float32 whatever the compute dtype:
+        the prior's logits at h0 can lie closer together than bfloat16
+        resolves (within 1e-3 at a random init), and rounding would pick the
+        mode."""
+        h0 = torch.tanh(self.initial).unsqueeze(0)
+        with torch.no_grad():
+            x = F.linear(h0, self.prior_mlp_h.weight, self.prior_mlp_h.bias)
+            if self.prior_norm.enabled:
+                x = layer_norm(x, self.prior_norm.weight, self.prior_norm.bias, torch.float32,
+                               self.prior_norm.eps)
+            x = F.linear(self.act(x), self.prior_mlp.weight, self.prior_mlp.bias)
+            logits = self.zdistr(x).logits
+        z0 = F.one_hot(logits.argmax(-1), self.stoch_discrete).float().reshape(1, -1)
+        return h0.expand(batch_size, -1), z0.expand(batch_size, -1)
+
+    def _gru_step(self, action, in_state: State, reset_mask, initial=None) -> torch.Tensor:
         h, z = in_state
         if reset_mask is not None:
             h = h * reset_mask
             z = z * reset_mask
+            if initial is not None:
+                h = h + initial[0] * (1.0 - reset_mask)
+                z = z + initial[1] * (1.0 - reset_mask)
+                action = action * reset_mask
         x = self.z_mlp(z) + self.a_mlp(action.to(self.compute_dtype))
-        za = F.elu(self.in_norm(x))
+        za = self.act(self.in_norm(x))
         return self.gru(za, h.to(self.compute_dtype)).float()
 
     def _post_stats(self, h, embed) -> torch.Tensor:
         dt = self.compute_dtype
         x = self.post_mlp_h(h.to(dt)) + self.post_mlp_e(embed.to(dt))
-        return self.post_mlp(F.elu(self.post_norm(x))).float()
+        return self.post_mlp(self.act(self.post_norm(x))).float()
 
     def _prior_stats(self, h) -> torch.Tensor:
         x = self.prior_mlp_h(h.to(self.compute_dtype))
-        return self.prior_mlp(F.elu(self.prior_norm(x))).float()
+        return self.prior_mlp(self.act(self.prior_norm(x))).float()
 
     def zdistr(self, pp: torch.Tensor):
         if self.stoch_discrete:
             logits = pp.reshape(pp.shape[:-1] + (self.stoch_dim, self.stoch_discrete))
-            return OneHotCategorical(logits, event_dims=1)
+            return OneHotCategorical(logits, event_dims=1, unimix=self.unimix)
         return diag_normal(pp)
 
     # -- steps ------------------------------------------------------------
 
-    def post_step(self, in_state: State, embed, action, reset_mask, z_noise):
-        h = self._gru_step(action, in_state, reset_mask)
+    def post_step(self, in_state: State, embed, action, reset_mask, z_noise, initial=None):
+        h = self._gru_step(action, in_state, reset_mask, initial)
         post = self._post_stats(h, embed)
         z = self.zdistr(post).rsample_noise(z_noise).reshape(h.shape[0], -1)
         return post, (h, z)
 
-    def prior_step(self, in_state: State, action, reset_mask, z_noise):
-        h = self._gru_step(action, in_state, reset_mask)
+    def prior_step(self, in_state: State, action, reset_mask, z_noise, initial=None):
+        h = self._gru_step(action, in_state, reset_mask, initial)
         prior = self._prior_stats(h)
         z = self.zdistr(prior).rsample_noise(z_noise).reshape(h.shape[0], -1)
         return prior, (h, z)
@@ -139,12 +179,13 @@ class RSSMCore(nn.Module):
 
     def __init__(self, embed_dim: int, action_dim: int, deter_dim: int, stoch_dim: int,
                  stoch_discrete: int, hidden_dim: int, gru_layers: int = 1,
-                 gru_type: str = "gru", layer_norm: bool = True, dtype=torch.float32):
+                 gru_type: str = "gru", layer_norm: bool = True, dtype=torch.float32,
+                 **options):
         super().__init__()
         self.stoch_dim = stoch_dim
         self.stoch_discrete = stoch_discrete
         self.cell = RSSMCell(embed_dim, action_dim, deter_dim, stoch_dim, stoch_discrete,
-                             hidden_dim, gru_layers, gru_type, layer_norm, dtype)
+                             hidden_dim, gru_layers, gru_type, layer_norm, dtype, **options)
 
     def forward(self,
                 embed: torch.Tensor,     # (T,B,E)
@@ -162,12 +203,14 @@ class RSSMCore(nn.Module):
 
         posts, states_h, samples = [], [], []
         state = in_state
+        initial = self.cell.initial_state(1) if self.cell.initial is not None else None
         for t in range(T):
             if do_open_loop:
-                post, state = self.cell.prior_step(state, actions[t], reset_masks[t], z_noise[t])
+                post, state = self.cell.prior_step(state, actions[t], reset_masks[t], z_noise[t],
+                                                   initial)
             else:
                 post, state = self.cell.post_step(state, embeds[t], actions[t],
-                                                  reset_masks[t], z_noise[t])
+                                                  reset_masks[t], z_noise[t], initial)
             posts.append(post)
             states_h.append(state[0])
             samples.append(state[1])

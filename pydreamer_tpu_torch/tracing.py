@@ -25,7 +25,12 @@ trace readers take for the CUDA runtime's own calls):
   ``pd.k1_backward``, ``GRUDv2Function.backward`` (K1's float32 recompute),
   which runs on autograd's device thread;
 * ``pd.optimizer``: the critic-target copies, the gradient zero-fill, the
-  norms, the clip and ``AdamW.step``;
+  norms, the clip and ``AdamW.step`` (and DreamerV3's slow-critic EMA);
+* ``pd.twohot``: DreamerV3's two-hot symlog work (the target's encoding,
+  the log-softmax over the bins, the means) of the reward head and of both
+  critics, inside ``pd.heads``, ``pd.dream`` and ``pd.actor_critic``;
+* ``pd.retnorm``: DreamerV3's return normalisation (the percentiles, the
+  EMA of the statistics, the scaled advantage), inside ``pd.actor_critic``;
 * ``pd.loop.<name>``: ``tools.Timer``'s phases of the trainer's loop.
 
 ``COUNTERS`` counts always, in plain integer adds: ``weight_casts``, each
@@ -50,9 +55,11 @@ __all__ = ["span", "NULL", "COUNTERS", "TALLIES", "LEAVES", "cutting"]
 
 NULL = contextlib.nullcontext()
 record_function = _profiler.record_function
-# The spans at which a capture cuts: the seven layers of the step and K1's backward.
+# The spans at which a capture cuts: the seven layers of the step, K1's
+# backward and DreamerV3's two-hot and return-normalisation work.
 LEAVES = frozenset(("pd.encoder", "pd.posterior", "pd.heads", "pd.dream", "pd.actor_critic",
-                    "pd.backward", "pd.optimizer", "pd.k1_backward"))
+                    "pd.backward", "pd.optimizer", "pd.k1_backward", "pd.twohot",
+                    "pd.retnorm"))
 _capture = None  # the capture being cut at the spans (``cutting``), or None
 
 

@@ -18,8 +18,12 @@ Counterpart of ``pydreamer_tpu/training/train_step.py:53-162``:
   whatever the groups;
 * each group is clipped by its global norm with optax's rule (scale by
   ``max/norm`` when ``norm > max``, not ``clip_grad_norm_``'s
-  ``max/(norm+1e-6)``) and updated by AdamW with ``weight_decay=0`` and
-  ``eps=adam_eps``, each with its own learning rate;
+  ``max/(norm+1e-6)``) and updated by AdamW with ``weight_decay=0``, each
+  with its own learning rate and eps: ``adam_eps``, and ``adam_eps_ac``
+  where set for the actor and the critic (DreamerV3);
+* a model whose actor-critic keeps a slow critic (DreamerV3) updates it by
+  its EMA after each optimizer step, inside the step (a replay updates it
+  too), and takes no hard copies;
 * the critic targets are frozen (no gradient, not in the optimizer). In JAX
   the auxiliary critic's target sits in the ``wm`` subtree with zero
   gradients, which leaves both the update and ``grad_norm`` as they are here.
@@ -149,7 +153,9 @@ class TrainStep:
             ctx.place_model(model)
         # The target copies run only where the model has the targets (JAX:
         # ``if "critic_target" in params``); a baseline has neither.
-        self.target_interval = conf.get("target_interval", 0) if hasattr(model, "ac") else 0
+        self.slow_critic = getattr(getattr(model, "ac", None), "slow_critic", None) is not None
+        self.target_interval = (conf.get("target_interval", 0)
+                                if hasattr(model, "ac") and not self.slow_critic else 0)
         self.target_interval_aux = (conf.get("target_interval_aux", 0)
                                     if getattr(model.wm, "ac_aux", None) is not None else 0)
         self.parts = param_parts(model)
@@ -160,10 +166,12 @@ class TrainStep:
         clip_ac = conf.grad_clip_ac or conf.grad_clip
         self.clips = {"wm": conf.grad_clip, "probe": conf.grad_clip,
                       "actor": clip_ac, "critic": clip_ac}
+        eps_ac = conf.get("adam_eps_ac") or conf.adam_eps
+        eps = {"wm": conf.adam_eps, "probe": conf.adam_eps, "actor": eps_ac, "critic": eps_ac}
         cuda = self.device.type == "cuda"
         self.optimizer = torch.optim.AdamW(
             [{"params": [p for part in parts for p in self.parts[part]], "lr": lrs[name],
-              "name": name} for name, parts in self.groups.items()],
+              "eps": eps[name], "name": name} for name, parts in self.groups.items()],
             eps=conf.adam_eps, weight_decay=0.0, capturable=cuda)
         self.optimizer.register_load_state_dict_post_hook(capturable_on_its_device)
         self.graphs = StepGraphs(CudaGraphs(self.device)) if graphable(self.device, ctx) else None
@@ -247,6 +255,8 @@ class TrainStep:
                 clip_by_global_norm_([g for part in parts for g in grads[part]], norm,
                                      self.clips[name])
             self.optimizer.step()
+            if self.slow_critic:
+                model.ac.update_slow_critic()
         metrics.update({k: v.detach() for k, v in losses.items()})
         if ctx is not None:
             metrics = ctx.reduce_metrics(metrics)

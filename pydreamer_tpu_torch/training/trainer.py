@@ -82,9 +82,10 @@ def to_list(s):
 
 
 def make_model(conf, device: str | torch.device = "cuda"):
-    """Model factory (reference: train.py:104-107): ``Dreamer``, or a
-    baseline world model with its probe."""
-    if conf.model == "dreamer":
+    """Model factory (reference: train.py:104-107): ``Dreamer`` (DreamerV2,
+    or DreamerV3 under ``model: dreamerv3``), or a baseline world model with
+    its probe."""
+    if conf.model in ("dreamer", "dreamerv3"):
         return Dreamer(conf, device=device)
     return WorldModelProbe(conf, device=device)
 

@@ -138,6 +138,19 @@ def test_bench_gru(capsys):
         assert line["k1_launches_per_step"] == {}  # the CPU runs K1's plain version
 
 
+def test_bench_gru_cells(capsys):
+    """``--cells``: K1 alone at the shapes given (the plain version on the CPU)."""
+    lines = bench_gru.main(["--device", "cpu", "--cells", "4x8x16,8x16x32", "--warmup", "1",
+                            "--steps", "2"])
+    _check_cpu_lines(lines, _json_lines(capsys.readouterr().out))
+    assert [line["cell"] for line in lines] == ["M=4,In=8,H=16", "M=8,In=16,H=32"]
+    for line in lines:
+        assert line["schedule"] == "plain"
+        assert all(line[k] > 0 for k in ("fwd_ms", "fwd_bwd_ms", "plain_fwd_ms",
+                                         "plain_fwd_bwd_ms"))
+    assert bench_gru._cells("dv3") == ((16, 1024, 4096), (1024, 1024, 4096))
+
+
 def test_bench_step_ab(capsys):
     line = bench_step_ab.main(TINY + ["--rounds", "2", "--n", "1", "--warmup", "1",
                                       "--b", "auto:auto:gru_type=gru_layernorm_dv2"])
