@@ -8,7 +8,10 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
 1. Build kernel K1 (``ops/csrc/gru_dv2.cu``, nvcc for sm_90a) and print the
    card's name and power limit as nvidia-smi reports them.
 2. Hold every K1 schedule against its plain PyTorch version: forward max-abs
-   error and the gradients of all six inputs. ``skinny`` and ``wide`` at the
+   error and the gradients of all six inputs (float32: the same plain
+   recompute, within ``GRAD_TOL``; bf16: K1's bf16 backward pass, within
+   ``BWD_WITNESS_FACTOR`` times what rounding dG to bf16 alone costs, at
+   most ``BWD_LIMIT_CAP``, as phase 20). ``skinny`` and ``wide`` at the
    two main-path shapes (M=32 and M=1536 rows, In=1000, H=1024, bf16) and at
    H=2048 (the ``defaults`` width), ``skinny_f32`` and ``wide_f32`` at the
    same four shapes in float32 (3xTF32 on the tensor cores, held to the f32
@@ -30,7 +33,10 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
    bf16 compute, uint8 images, gru_type gru_layernorm_dv2) from random
    weights made from a seed: 2 warm-up and 5 timed TrainStep calls. The K1
    launch counter is set to 0 just before and read just after: T launches a
-   step must have taken ``skinny`` and H ``wide``, none ``generic``.
+   step must have taken ``skinny`` and H ``wide``, none ``generic``; so is
+   K1's backward tally (``K1_BACKWARDS``): T calls a step at M=B (the dream
+   is not differentiated under ``actor_grad: reinforce``), every one on the
+   bf16 pass (route ``kernel``).
 5. Profile one more step with torch.profiler: K1's kernels, device time and
    launches, and the device's busy time in the step.
 6. Time the train step with the K1 cell against the unfused cell, in turns
@@ -44,11 +50,12 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
    gradient norm must agree. K1's backward runs at M=1536, H=2048 here.
 9. Drive the DMC train step: 2 warm-up and 5 timed TrainStep calls, counts
    set to 0 just before and read just after (48 ``skinny`` and 15 ``wide`` a
-   step, none ``generic``), a finite non-zero actor gradient norm, and no
+   step, none ``generic``; 48 K1 backward calls at M=32 and 15 at M=1536 a
+   step, all on the bf16 pass), a finite non-zero actor gradient norm, and no
    world-model gradient from the actor loss alone. Then one log step
    (``do_image_pred``, ``do_dream_tensors``: 48 + 47 skinny, 15 wide, finite
    dream tensors of JAX's shapes) and one profiled step: busy time, K1's
-   kernels and the f32 GEMMs of K1's backward recompute.
+   kernels and the step's f32 GEMMs (K1's backward runs bf16 products).
 10. ``Dreamer.inference`` on the DMC model at B=1 and B=8: one ``skinny``
    launch a call, finite actions in [-1, 1], host microseconds per call.
 11. The learner loop on the flagship model. K1 at the eval protocol's
@@ -186,7 +193,9 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
    an eager log step (``do_image_pred``) at step 4, which the eager run takes
    too. Per step the losses, the four gradient norms, the out-state and every
    parameter are held to the eager run's (``GRAPH_RTOL``, ``GRAPH_ATOL``; the
-   largest differences are printed); one capture; no returned tensor shares
+   largest differences are printed); each call, replayed or eager, counts
+   K1's backward calls of a step, all on the bf16 pass (T at M=B, and H at
+   M=T*B under ``actor_grad: dynamics``); one capture; no returned tensor shares
    storage with another step's; a profiled replay shows K1's kernels, T
    ``skinny`` and H ``wide`` launches credited, and device busy time within
    ``GRAPH_BUSY_RTOL`` of a profiled eager step's. Prints the capture's
@@ -195,10 +204,9 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
    phases 1 and 17.
 18. K1 at DreamerV3 XL's shapes (In=1024, H=4096, bf16): ``skinny`` at M=16
    (the posterior loop) and ``wide`` at M=1024 (the dream) against the
-   plain version, forward and six gradients, timed as in 2; then K1's
-   backward (the float32 recompute through the plain version and its
-   gradients) at both shapes: ms of a forward and backward through K1's
-   autograd function beside the same through the plain version; then
+   plain version, forward and six gradients, timed as in 2; then ms of a
+   forward and backward (K1's bf16 backward pass) through K1's autograd
+   function at both shapes beside the same through the plain version; then
    ``bench_gru --cells dv3``, the tool's lines at the same two shapes.
 19. The DreamerV3 XL step (``--configs defaults atari dreamerv3_xl``, read
    by the port's ``build_conf``) replayed from CUDA graphs against the eager
@@ -211,12 +219,28 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
    step, step 2 captures, the rest replay (at least 97% of the calls), K1
    launches 64 ``skinny`` (M=16) and 15 ``wide`` (M=1024) a step, plus the
    log step's 63-step dream at M=16 (these counts are the kernels line's
-   for the two DreamerV3 XL rows), and the checkpoint lands at step 60.
+   for the two DreamerV3 XL rows), 64 K1 backward calls a step at M=16, all
+   on the bf16 pass, and the checkpoint lands at step 60.
    ``--dv3-only`` runs phases 1, 18, 19 and 19b.
+20. K1's backward, the bf16 pass (``ops/gru_dv2.py::k1_backward``: the
+   forward's gate products recomputed, the LayerNorm/gate backward kernel,
+   three bf16 products with f32 sums), at the posterior loop's and the
+   dream's shapes: M=32 and M=1536 at H=1024 and H=2048 (In=1000), M=16 and
+   M=1024 at In=1024, H=4096; all six gradients, and at M > 64 also x and h
+   alone (the dream under ``actor_grad: dynamics``). Each gradient is held
+   to autograd through the plain version in float32 (the backward before
+   the bf16 pass) within ``BWD_WITNESS_FACTOR`` times the witness's
+   distance from it (``backward_witness``: the same float32 arithmetic with
+   dG rounded to bf16, the pass's one new rounding), or ``GRAD_TOL``, and
+   never more than ``BWD_LIMIT_CAP``. Timed
+   (CUDA graphs, cold L2) beside its bound (bytes at the card's bandwidth
+   or bf16 operations at its tensor rate) and the plain recompute's time.
+   ``--backward-only`` runs phases 1 and 20.
 
 Prints one JSON line of per-kernel numbers (``launches``: the count on the
 path that runs the shape, ``launches_per_step``: per train step or acting
-call), then the nvidia-smi line, then
+call; K1's backward has a row per shape and gradient set of phase 20, its
+calls counted in phases 4, 9 and 19b), then the nvidia-smi line, then
 as the last line ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``, ``chiprun_out/chip_smoke_profile.txt`` and
 ``chiprun_out/learner_metrics.jsonl`` (phase 11's metrics),
@@ -277,7 +301,12 @@ DMC = dict(FLAGSHIP, deter_dim=2048, action_dim=12, kl_weight=1.0, gamma=0.995, 
 
 FWD_TOL = 2e-3      # max-abs on h' (|h'| <= ~1), bf16 operands: f32 sums in another order, amplified by LayerNorm
 FWD_TOL_F32 = 1e-4  # max-abs on h', f32 operands: both sides full f32 (TF32 off), sums in another order
-GRAD_TOL = 1e-3     # relative to each gradient's max-abs: backward is the same plain recompute
+GRAD_TOL = 1e-3     # relative to each gradient's max-abs: float32's backward is the same plain recompute
+BWD_WITNESS_FACTOR = 2.0  # bf16's backward rounds the gate gradient dG to bf16: each gradient may
+                          # differ from the float32 recompute's by twice what that rounding alone
+                          # costs there (the witness, backward_witness), or by GRAD_TOL
+BWD_LIMIT_CAP = 2e-2  # ... but never by more than this: the witnesses read 3.3e-3 to 7.6e-3 on the
+                      # H100 at phase 20's shapes, so a witness that drifts fails the check
 LOSS_RTOL = 2e-2    # fused vs unfused cell in bf16 over a 48-step loop and a 15-step dream
 LOSS_ATOL = 1e-3    # ... for losses near 0 (the dummy probe)
 AC_LOSS_RTOL = 1e-1  # actor/critic losses: small means over a 15-step bf16 dream (the unfused
@@ -286,6 +315,7 @@ GRAD_NORM_RTOL = 5e-2  # the actor's gradient norm, fused vs unfused, through th
 
 K1_SOURCE = "pydreamer_tpu_torch/ops/csrc/gru_dv2.cu"
 K1_REPLACES = "pydreamer_tpu/ops/gru_pallas.py:78"
+K1_BWD_REPLACES = "pydreamer_tpu/ops/gru_pallas.py:114"  # JAX's _bwd: the recompute in plain XLA
 
 
 def time_ms(torch, fn, iters: int, flush=None) -> float:
@@ -372,12 +402,14 @@ def check_k1(torch, k1, M, In, H, dtype, want, gen, device, timed: bool, peaks, 
     (k1.GRUDv2Function.apply(*leaves_k) * proj).sum().backward()
     leaves_p = [t.clone().requires_grad_() for t in ins]
     (k1.gru_dv2_reference(*leaves_p) * proj).sum().backward()
+    witness = backward_witness(torch, k1, ins, proj) if dtype == torch.bfloat16 else None
     grad_errs = {}
-    for name, a, b in zip(("x", "h", "w_ih", "w_hh", "scale", "bias"), leaves_k, leaves_p):
-        err = ((a.grad.float() - b.grad.float()).abs().max() / b.grad.float().abs().max()).item()
+    for i, (name, a, b) in enumerate(zip(GRAD_NAMES, leaves_k, leaves_p)):
+        err = rel_err(a.grad, b.grad)
         grad_errs[name] = err
-        if not math.isfinite(err) or err > GRAD_TOL:
-            raise AssertionError(f"K1 {got} M={M}: grad {name} rel err {err} > {GRAD_TOL}")
+        limit = GRAD_TOL if witness is None else bwd_limit(rel_err(witness[i], b.grad))
+        if not math.isfinite(err) or err > limit:
+            raise AssertionError(f"K1 {got} M={M}: grad {name} rel err {err} > {limit}")
     result = dict(schedule=got, M=M, In=In, H=H, dtype=str(dtype).replace("torch.", ""),
                   max_abs_err=fwd_err, tol=tol, grad_rel_err=grad_errs)
     if timed:
@@ -405,6 +437,62 @@ def check_k1(torch, k1, M, In, H, dtype, want, gen, device, timed: bool, peaks, 
             M, In, H, peaks, dtype == torch.bfloat16)
         result["bound_share"] = result["bound_ms"] / result["ms"]
     return result
+
+
+GRAD_NAMES = ("x", "h", "w_ih", "w_hh", "scale", "bias")
+
+
+def rel_err(a, b) -> float:
+    """max |a - b| over max |b|, in float32."""
+    return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+
+def bwd_limit(witness: float) -> float:
+    """The limit of a bf16 gradient of K1's backward, relative to its max:
+    ``BWD_WITNESS_FACTOR`` times the witness's distance, at least
+    ``GRAD_TOL``, at most ``BWD_LIMIT_CAP``."""
+    return min(max(BWD_WITNESS_FACTOR * witness, GRAD_TOL), BWD_LIMIT_CAP)
+
+
+def k1_backward_rows(T: int, B: int, H_imag: int, dynamics: bool, steps: int = 1) -> dict:
+    """K1 backward calls by rows that ``steps`` train steps make: T at M=B
+    (the posterior loop) and, under ``actor_grad: dynamics`` (the only mode
+    whose actor loss reaches the dream's cell), H_imag at M=T*B."""
+    return {B: steps * T, **({T * B: steps * H_imag} if dynamics else {})}
+
+
+def check_k1_backwards(k1, report, where: str, want: dict, H: int, steps: int,
+                       credit: bool = True) -> None:
+    """The K1 backward calls counted since ``K1_BACKWARDS.reset()`` on a
+    main-path run: ``want`` by rows, every one on the bf16 pass (route
+    ``kernel``). With ``credit``, add them to the kernels line's K1-backward
+    rows (``report["k1_backward_path"]``, launches and steps by shape)."""
+    route, rows = dict(k1.K1_BACKWARDS.by_route), dict(k1.K1_BACKWARDS.by_rows)
+    if credit:
+        print(f"[{where}] K1 backward calls by route {route}, by rows {rows}", flush=True)
+    if route != {"kernel": sum(want.values())} or rows != want:
+        raise AssertionError(f"[{where}] K1 backward calls by route {route}, by rows {rows}; "
+                             f"expected {sum(want.values())} on the kernel route, {want}")
+    if credit:
+        path = report.setdefault("k1_backward_path", {})
+        for M, n in want.items():
+            launches, n_steps = path.get(f"M={M},H={H}", (0, 0))
+            path[f"M={M},H={H}"] = (launches + n, n_steps + steps)
+
+
+def backward_witness(torch, k1, ins, grad_out, needs=(True,) * 6) -> list:
+    """The bf16 witness of K1's backward: the float32 recompute's arithmetic
+    (f32 copies of the operands, the plain LayerNorm/gate backward) with the
+    bf16 pass's one new rounding, dG to bf16, before three f32 products; each
+    gradient rounded to its input's dtype. Its distance from the float32
+    recompute is what that rounding costs."""
+    x, h, w_ih, w_hh, scale, bias = ins
+    gates = x.float() @ w_ih.float() + h.float() @ w_hh.float()
+    dG, dh_term, d_scale, d_bias = k1.ln_gate_backward_reference(gates, h, scale, bias, grad_out)
+    dG = dG.to(x.dtype).float()
+    out = (dG @ w_ih.float().t(), dG @ w_hh.float().t() + dh_term, x.float().t() @ dG,
+           h.float().t() @ dG, d_scale, d_bias)
+    return [g.to(t.dtype) if need else None for g, t, need in zip(out, ins, needs)]
 
 
 def k1_summary(res) -> str:
@@ -2000,9 +2088,9 @@ DV3_IN, DV3_H = 1024, 4096  # K1's In and H in DreamerV3 XL (hidden_dim, deter_d
 
 def k1_backward_ms(torch, k1, M, In, H, gen, device, iters: int = 10) -> dict:
     """ms of a forward and backward (all six gradients) through K1's autograd
-    function and through the plain version, bf16 operands, timed with CUDA
-    events over ``iters`` calls after two warm ones (autograd's backward is
-    not captured in a graph here)."""
+    function (the bf16 backward pass) and through the plain version, bf16
+    operands, timed with CUDA events over ``iters`` calls after two warm ones
+    (autograd's backward is not captured in a graph here)."""
     ins = k1_inputs(torch, M, In, H, gen, device, torch.bfloat16)
     proj = torch.randn(M, H, generator=gen, device=device)
 
@@ -2047,6 +2135,80 @@ def dv3_k1_phase(torch, k1, report, gen, device, peaks, unfused) -> list:
     return rows
 
 
+# Phase 20's shapes (M, In, H): the posterior loop's and the dream's at the
+# Atari and DMC widths (H=1024, 2048; In=1000) and at DreamerV3 XL's.
+BWD_SHAPES = ((32, 1000, 1024), (1536, 1000, 1024), (32, 1000, 2048), (1536, 1000, 2048),
+              (16, DV3_IN, DV3_H), (1024, DV3_IN, DV3_H))
+X_H = (True, True, False, False, False, False)  # the dream under actor_grad: dynamics
+
+
+def k1_backward_bound_ms(M, In, H, peaks, needs) -> tuple[float, str]:
+    """Least time of K1's bf16 backward: the recompute's product and one
+    product per pair of gradients asked for (dx and dh share one; dw_ih and
+    dw_hh one) at the bf16 tensor rate, or the bytes: the weights read by the
+    recompute and by dx/dh, dW written, the f32 gates written and read, dG
+    written once and read once a product, grad_out, h, x and the outputs.
+    -> (ms, "bytes" or "operations")."""
+    bw, bf16_rate = peaks[0], peaks[1]
+    K, N = In + H, 3 * H
+    pairs = 1 + int(needs[0] or needs[1]) + int(needs[2] or needs[3])
+    weights = 2 * K * N * pairs
+    acts = M * N * (4 * 2 + 2 * pairs) + M * H * 4 * 2 + M * K * 2 * 2
+    t_bytes, t_ops = (weights + acts) / bw, pairs * 2 * M * K * N / bf16_rate
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def k1_backward_phase(torch, k1, report, gen, device, peaks) -> list:
+    """20. K1's backward, the bf16 pass (the module docstring)."""
+    flush_buf = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device=device)  # 128 MB > L2
+    rows = []
+    for M, In, H in BWD_SHAPES:
+        ins = k1_inputs(torch, M, In, H, gen, device, torch.bfloat16)
+        grad_out = torch.randn(M, H, generator=gen, device=device)
+        res = dict(M=M, In=In, H=H, schedule=k1.plan(M, In, H, torch.bfloat16).schedule,
+                   rows=k1.backward_rows(M), route=k1.backward_route(torch.bfloat16))
+        if res["route"] != "kernel":
+            raise AssertionError(f"[20] M={M} H={H}: route {res['route']}")
+        checks = (("all", (True,) * 6),) + ((("x_h", X_H),) if M > 64 else ())
+        for label, needs in checks:
+            leaves = [t.clone().requires_grad_(need) for t, need in zip(ins, needs)]
+            wanted = [t for t in leaves if t.requires_grad]
+            plain = torch.autograd.grad(k1.gru_dv2_reference(*leaves), wanted, grad_out)
+            got = [g for g in k1.k1_backward(*ins, grad_out, needs) if g is not None]
+            witness = [g for g in backward_witness(torch, k1, ins, grad_out, needs) if g is not None]
+            names = [n for n, need in zip(GRAD_NAMES, needs) if need]
+            errs = {}
+            for name, a, b, w in zip(names, got, plain, witness):
+                if a.dtype != b.dtype or a.shape != b.shape:
+                    raise AssertionError(f"[20] M={M} H={H} {name}: {a.dtype} {tuple(a.shape)}, "
+                                         f"expected {b.dtype} {tuple(b.shape)}")
+                err, wit = rel_err(a, b), rel_err(w, b)
+                limit = bwd_limit(wit)
+                errs[name] = dict(err=err, witness=wit, limit=limit)
+                if not math.isfinite(err) or err > limit:
+                    raise AssertionError(f"[20] M={M} In={In} H={H} {label}: grad {name} rel err "
+                                         f"{err} > {limit} (witness {wit})")
+            res[f"grads_{label}"] = errs
+            iters = 20 if H < 4096 else 10
+            res[f"ms_{label}"] = time_ms(torch, lambda: k1.k1_backward(*ins, grad_out, needs),
+                                         iters, flush_buf.zero_)
+            res[f"plain_ms_{label}"] = time_ms(
+                torch, lambda: torch.autograd.grad(k1.gru_dv2_reference(*leaves), wanted, grad_out),
+                iters, flush_buf.zero_)
+            res[f"bound_ms_{label}"], res[f"bound_by_{label}"] = k1_backward_bound_ms(
+                M, In, H, peaks, needs)
+            ms, bound = res[f"ms_{label}"], res[f"bound_ms_{label}"]
+            grads = ", ".join(f"{n} {e['err']:.2e}/{e['limit']:.2e}" for n, e in errs.items())
+            print(f"[20] K1 backward {res['schedule']} M={M} In={In} H={H} ({label}, rows "
+                  f"{res['rows']}): {ms:.5f} ms, bound {bound:.5f} ({res[f'bound_by_{label}']}, "
+                  f"{100 * bound / ms:.1f}%), plain recompute {res[f'plain_ms_{label}']:.5f} ms; "
+                  f"grads err/limit {grads}", flush=True)
+        rows.append(res)
+    report["k1_backward"] = rows
+    (OUT_DIR / "k1_backward_phase.json").write_text(json.dumps(rows, indent=1))
+    return rows
+
+
 def dv3_conf():
     """DreamerV3 XL as the normal path reads it: ``--configs defaults atari dreamerv3_xl``."""
     from pydreamer_tpu_torch.conf import build_conf
@@ -2085,6 +2247,7 @@ def dv3_learner_phase(torch, k1, report, path_launches, per_step, device) -> dic
     torch.cuda.empty_cache()
     COUNTERS.reset()
     k1.LAUNCHES.reset()
+    k1.K1_BACKWARDS.reset()
     trainer.run(Conf(d), run_dir=str(run_dir), device=device)
     torch.cuda.synchronize()
     rows, sched = dict(k1.LAUNCHES.by_rows), dict(k1.LAUNCHES.by_schedule)
@@ -2105,6 +2268,8 @@ def dv3_learner_phase(torch, k1, report, path_launches, per_step, device) -> dic
             or sched != want or rows != {B: want["skinny"], T * B: want["wide"]}):
         raise AssertionError(f"[19b] {out}; expected K1 launches {want}")
     H = d["deter_dim"]
+    check_k1_backwards(k1, report, "19b", k1_backward_rows(
+        T, B, H_imag, d["actor_grad"] == "dynamics", n), H, n)
     path_launches[("skinny", B, H)] = path_launches.get(("skinny", B, H), 0) + sched["skinny"]
     path_launches[("wide", T * B, H)] = path_launches.get(("wide", T * B, H), 0) + sched["wide"]
     per_step[(B, H)] = per_step.get((B, H), 0) + n
@@ -2184,14 +2349,18 @@ def graph_phase(torch, k1, report, gen, device, configs=None, phase: str = "17",
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         kept, worst, rows = [], {"metrics": 0.0, "state": 0.0, "params": 0.0}, []
+        bwd_want = k1_backward_rows(T, B, H_imag, conf.actor_grad == "dynamics")
         for i, obs in enumerate(batches):
             step = i + 1
             flags = dict(do_image_pred=True) if step == GRAPH_LOG_STEP else {}
             got = {}
             for k in ("graphed", "eager"):
+                k1.K1_BACKWARDS.reset()
                 states[k], metrics, tensors, _ = steps[k](obs, states[k], step, seed=GRAPH_SEED,
                                                           **flags)
                 got[k] = (states[k], metrics, tensors)
+                check_k1_backwards(k1, report, f"{phase}] [{label} {k} step {step}", bwd_want,
+                                   conf.deter_dim, 1, credit=False)
             kept.append(got["graphed"])
             (sg, mg, _), (se, me, _) = got["graphed"], got["eager"]
             names = ["loss_model", "loss_probe", "loss_actor", "loss_critic",
@@ -2264,8 +2433,9 @@ def graph_phase(torch, k1, report, gen, device, configs=None, phase: str = "17",
 
 def finish(torch, report, path_launches, per_step, smi: str, name: str) -> int:
     """The kernels line (one entry per timed K1 row: its launches on the path
-    that runs its shape, per train step or acting call), the nvidia-smi line
-    and the last line."""
+    that runs its shape, per train step or acting call; then one per timed
+    shape and gradient set of K1's backward, phase 20, with the calls that
+    phases 4, 9 and 19b counted), the nvidia-smi line and the last line."""
     kernels = []
     for r in report["k1"]:
         n = path_launches.get((r["schedule"], r["M"], r["H"]), 0)
@@ -2284,6 +2454,22 @@ def finish(torch, report, path_launches, per_step, smi: str, name: str) -> int:
                                     launches=0, launches_per_step=0,
                                     max_abs_err=r[f"{first}_max_abs_err"], ms=r[f"{first}_ms"],
                                     **common))
+    bwd_path = report.get("k1_backward_path", {})
+    for r in report.get("k1_backward", []):
+        # The path's gradient set: all six in the posterior loop, x and h alone
+        # in the dream (only actor_grad: dynamics differentiates it).
+        on_path = "x_h" if "ms_x_h" in r else "all"
+        for label in ("all", "x_h"):
+            if f"ms_{label}" not in r:
+                continue
+            n, steps = bwd_path.get(f"M={r['M']},H={r['H']}", (0, 0)) if label == on_path else (0, 0)
+            kernels.append(dict(
+                name=f"gru_dv2.k1_backward.{label}[M={r['M']},H={r['H']},bfloat16]", launches=n,
+                launches_per_step=n / steps if n else 0,
+                max_rel_err=max(e["err"] for e in r[f"grads_{label}"].values()),
+                ms=r[f"ms_{label}"], route="cuda", source=K1_SOURCE, replaces=K1_BWD_REPLACES,
+                bound_ms=r[f"bound_ms_{label}"], bound_by=r[f"bound_by_{label}"],
+                plain_ms=r[f"plain_ms_{label}"]))
     marks = sorted(report.pop("phase_start").items(), key=lambda kv: kv[1])
     marks.append(("end", time.perf_counter()))
     report["phase_s"] = {str(a): b_t - a_t for (a, a_t), (_, b_t) in zip(marks, marks[1:])}
@@ -2300,10 +2486,11 @@ def finish(torch, report, path_launches, per_step, smi: str, name: str) -> int:
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv not in ([], ["--learning-only"], ["--tools-only"], ["--graph-only"],
-                    ["--dv3-only"]):
+                    ["--dv3-only"], ["--backward-only"]):
         print("usage: chip_smoke.py [--learning-only | --tools-only | --graph-only | "
-              "--dv3-only]  (phases 1 and 15 alone; phases 1, 2 at the flagship shapes, and 16 "
-              "with bench_e2e; phases 1 and 17; phases 1, 18 and 19)", file=sys.stderr)
+              "--dv3-only | --backward-only]  (phases 1 and 15 alone; phases 1, 2 at the "
+              "flagship shapes, and 16 with bench_e2e; phases 1 and 17; phases 1, 18 and 19; "
+              "phases 1 and 20)", file=sys.stderr)
         return 2
     import torch
     if not torch.cuda.is_available():
@@ -2367,6 +2554,10 @@ def main(argv=None) -> int:
         path_launches, per_step = {}, {}
         dv3_learner_phase(torch, k1, report, path_launches, per_step, device)
         return finish(torch, report, path_launches, per_step, smi, name)
+    if argv == ["--backward-only"]:
+        report["phase_start"][20] = report["phase_start"].pop(2)
+        k1_backward_phase(torch, k1, report, gen, device, peaks)
+        return finish(torch, report, {}, {}, smi, name)
     if argv == ["--tools-only"]:
         for M, want in ((B, "skinny"), (T * B, "wide")):
             res = check_k1(torch, k1, M, In, H, bf16, want, gen, device, True, peaks, unfused)
@@ -2428,6 +2619,7 @@ def main(argv=None) -> int:
     torch.cuda.reset_peak_memory_stats()
     n_steps = 5
     k1.LAUNCHES.reset()
+    k1.K1_BACKWARDS.reset()
     step_ms, state, metrics = timed_steps(torch, ts, obs, state, 2, n_steps)
     launches, by_rows = k1.LAUNCHES.count, dict(k1.LAUNCHES.by_rows)
     by_schedule = dict(k1.LAUNCHES.by_schedule)
@@ -2446,6 +2638,8 @@ def main(argv=None) -> int:
             or by_schedule != {"skinny": n_steps * T, "wide": n_steps * H_imag}):
         raise AssertionError(f"K1 launches {launches} {by_rows} {by_schedule}, expected {want}: "
                              f"{n_steps * T} skinny and {n_steps * H_imag} wide")
+    check_k1_backwards(k1, report, "4", k1_backward_rows(
+        T, B, H_imag, conf.actor_grad == "dynamics", n_steps), H, n_steps)
     if tuple(state[0].shape) != (B, H) or not torch.isfinite(state[0]).all():
         raise AssertionError("out_state h is not finite of shape (B, deter)")
 
@@ -2532,6 +2726,7 @@ def main(argv=None) -> int:
     _, dstate, _ = timed_steps(torch, dts, dobs, dmodel.init_state(B), 0, 2)
     torch.cuda.reset_peak_memory_stats()
     k1.LAUNCHES.reset()
+    k1.K1_BACKWARDS.reset()
     dstep_ms, dstate, dmetrics = timed_steps(torch, dts, dobs, dstate, 2, n_steps)
     d_rows, d_sched = dict(k1.LAUNCHES.by_rows), dict(k1.LAUNCHES.by_schedule)
     dstep = 2 + n_steps
@@ -2550,6 +2745,8 @@ def main(argv=None) -> int:
     if not all(math.isfinite(v) for v in dlosses.values()) or not (math.isfinite(gna) and gna > 0):
         raise AssertionError(f"DMC step: losses {dlosses}, grad_norm_actor {gna}")
     path_launches.update({("skinny", B, Hd): d_sched["skinny"], ("wide", T * B, Hd): d_sched["wide"]})
+    check_k1_backwards(k1, report, "9", k1_backward_rows(
+        T, B, H_imag, dconf.actor_grad == "dynamics", n_steps), Hd, n_steps)
 
     # The actor loss alone reaches the actor and leaves the world model alone.
     dmodel.zero_grad(set_to_none=True)  # TrainStep leaves its step's gradients behind
@@ -2594,7 +2791,7 @@ def main(argv=None) -> int:
     report["dmc"]["profile"] = prof9
     print(f"[9] profiled DMC step: wall {prof9['wall_ms']:.2f} ms, device busy "
           f"{prof9['device_busy_ms']:.2f} ms; K1 {prof9['k1_ms']:.3f} ms {prof9['k1_ms_by_kernel']}; "
-          f"f32 GEMMs (K1's backward recompute) {prof9['f32_gemm_ms']:.3f} ms in "
+          f"f32 GEMMs {prof9['f32_gemm_ms']:.3f} ms in "
           f"{prof9['f32_gemm_calls']} calls; K1 launched {prof9['launched']}, recorded "
           f"{prof9['k1_launches']}")
     check_profiled_k1(prof9, T, H_imag, "[9] profiled DMC step")
@@ -2698,6 +2895,10 @@ def main(argv=None) -> int:
     graph_phase(torch, k1, report, gen, device, [("atari_dv3_xl", dv3_conf())], "19",
                 "graphs_dv3")
     dv3_learner_phase(torch, k1, report, path_launches, per_step, device)
+
+    report["phase_start"][20] = time.perf_counter()
+    # 20. K1's backward: the bf16 pass against the float32 recompute.
+    k1_backward_phase(torch, k1, report, gen, device, peaks)
     return finish(torch, report, path_launches, per_step, smi, name)
 
 

@@ -76,7 +76,17 @@
 // single TF32 pass keeps ~3 digits, short of the f32 path's 1e-4 tolerance
 // on h'.
 //
-// Plain C interface, loaded with ctypes: the entry returns the CUDA error
+// The backward (bf16 operands; GRUDv2Function.backward's bf16 pass in
+// ops/gru_dv2.py, section k1_bwd below) has two more entries:
+// gru_dv2_gates recomputes the pre-norm gates with the forward's skinny,
+// wide (unclustered) or generic products, stopped before the LayerNorm pass,
+// and gru_dv2_backward takes the LayerNorm and gate backward to the gate
+// gradient dG (bf16), the direct term of dh and d_scale / d_bias. The three
+// products from dG run outside (cuBLAS, bf16 operands, f32 sums). The
+// backward's kernels live in namespace k1_bwd, so no trace takes them for
+// the forward's k1:: kernels.
+//
+// Plain C interface, loaded with ctypes: each entry returns the CUDA error
 // code of its launches (0 on success; negative codes are explained by
 // gru_dv2_error_string).
 
@@ -257,10 +267,12 @@ __device__ __forceinline__ void mma_phase(const bf16* __restrict__ A,
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-gates_kernel(const bf16* __restrict__ x, const bf16* __restrict__ h,
-             const bf16* __restrict__ w_ih, const bf16* __restrict__ w_hh,
-             float* __restrict__ gates, int M, int In, int H) {
+// The body of gates_kernel; K1's backward recompute (k1_bwd::generic_gates)
+// runs it under its own name.
+__device__ __forceinline__ void gates_tile(const bf16* __restrict__ x, const bf16* __restrict__ h,
+                                           const bf16* __restrict__ w_ih,
+                                           const bf16* __restrict__ w_hh,
+                                           float* __restrict__ gates, int M, int In, int H) {
   __shared__ __align__(128) bf16 As[BM * A_LD];
   __shared__ __align__(128) bf16 Bs[BK * B_LD];
   __shared__ __align__(128) float Cs[BM * C_LD];
@@ -289,6 +301,13 @@ gates_kernel(const bf16* __restrict__ x, const bf16* __restrict__ h,
     const int r = idx / BN, c = idx % BN;
     if (m0 + r < M && n0 + c < N) gates[(size_t)(m0 + r) * N + n0 + c] = Cs[r * C_LD + c];
   }
+}
+
+__global__ void __launch_bounds__(THREADS)
+gates_kernel(const bf16* __restrict__ x, const bf16* __restrict__ h,
+             const bf16* __restrict__ w_ih, const bf16* __restrict__ w_hh,
+             float* __restrict__ gates, int M, int In, int H) {
+  gates_tile(x, h, w_ih, w_hh, gates, M, In, H);
 }
 
 }  // namespace generic
@@ -415,11 +434,14 @@ __host__ __device__ constexpr int smem_bytes(int mt, int kc) {
   return mt * 16 * kc * 2 + STAGES * STAGE_BYTES;
 }
 
+// The body of gates_kernel; K1's backward recompute (k1_bwd::skinny_gates)
+// runs it under its own name.
 template <int MT>
-__global__ void __launch_bounds__(THREADS)
-gates_kernel(const bf16* __restrict__ x, const bf16* __restrict__ h,
-             const bf16* __restrict__ w_ih, const bf16* __restrict__ w_hh,
-             float* __restrict__ parts, int M, int In, int H, int kc) {
+__device__ __forceinline__ void gates_tile(const bf16* __restrict__ x, const bf16* __restrict__ h,
+                                           const bf16* __restrict__ w_ih,
+                                           const bf16* __restrict__ w_hh,
+                                           float* __restrict__ parts, int M, int In, int H,
+                                           int kc) {
   extern __shared__ __align__(128) uint8_t smem[];
   const int N = 3 * H, K = In + H;
   const int n0 = blockIdx.x * BN;
@@ -504,6 +526,14 @@ gates_kernel(const bf16* __restrict__ x, const bf16* __restrict__ h,
         *reinterpret_cast<float2*>(dst + (size_t)(r0 + 8) * N + col) =
             make_float2(acc[mt][nt][2], acc[mt][nt][3]);
     }
+}
+
+template <int MT>
+__global__ void __launch_bounds__(THREADS)
+gates_kernel(const bf16* __restrict__ x, const bf16* __restrict__ h,
+             const bf16* __restrict__ w_ih, const bf16* __restrict__ w_hh,
+             float* __restrict__ parts, int M, int In, int H, int kc) {
+  gates_tile<MT>(x, h, w_ih, w_hh, parts, M, In, H, kc);
 }
 
 }  // namespace skinny
@@ -993,13 +1023,17 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
 
 // kCluster: the H/HB blocks of a row tile form one cluster and the epilogue
 // writes h'; otherwise it writes the f32 gates for ln_gate_kernel.
+// The body of gates_kernel, on the kernel's own parameters (the tensor maps
+// stay in parameter space); K1's backward recompute (k1_bwd::wide_gates) runs
+// the unclustered one under its own name.
 template <bool kCluster>
-__global__ void __launch_bounds__(THREADS, 1)
-gates_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_h,
-             const __grid_constant__ CUtensorMap tm_wih, const __grid_constant__ CUtensorMap tm_whh,
-             const bf16* __restrict__ h, const float* __restrict__ scale,
-             const float* __restrict__ bias, float* __restrict__ out,
-             float* __restrict__ gates, int M, int In, int H) {
+__device__ __forceinline__ void gates_tile(const CUtensorMap& tm_x, const CUtensorMap& tm_h,
+                                           const CUtensorMap& tm_wih, const CUtensorMap& tm_whh,
+                                           const bf16* __restrict__ h,
+                                           const float* __restrict__ scale,
+                                           const float* __restrict__ bias,
+                                           float* __restrict__ out, float* __restrict__ gates,
+                                           int M, int In, int H) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;  // the 128-byte swizzle wants 1024-byte alignment
@@ -1216,7 +1250,206 @@ gates_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ C
   }
 }
 
+template <bool kCluster>
+__global__ void __launch_bounds__(THREADS, 1)
+gates_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_h,
+             const __grid_constant__ CUtensorMap tm_wih, const __grid_constant__ CUtensorMap tm_whh,
+             const bf16* __restrict__ h, const float* __restrict__ scale,
+             const float* __restrict__ bias, float* __restrict__ out,
+             float* __restrict__ gates, int M, int In, int H) {
+  gates_tile<kCluster>(tm_x, tm_h, tm_wih, tm_whh, h, scale, bias, out, gates, M, In, H);
+}
+
 }  // namespace wide
+
+}  // namespace k1
+
+// ---------------------------------------------------------------------------
+// K1's backward (GRUDv2Function.backward's bf16 pass), in namespace k1_bwd:
+// its kernels' names never carry the forward's k1:: (the traces count K1's
+// forward kernels by it). The recompute runs the forward's gate products
+// under names of its own; the rest is the LayerNorm and gate backward.
+//
+// The backward of the LayerNorm and the gates: the middle of the bf16 pass of
+// GRUDv2Function.backward (ops/gru_dv2.py::k1_backward). The pre-norm gates G
+// come from the forward's own schedule stopped before its LayerNorm pass
+// (gru_dv2_gates: skinny's nsplit partial sums, wide's and generic's
+// workspace), so the backward normalises what the forward normalised. Per
+// row, with go = dL/dh' (f32):
+//
+//   gn = (G - mean) * rstd, y = gn * scale + bias, (r, u, n) = split(y)
+//   reset = sigmoid(r), update = sigmoid(u - 1), t = tanh(reset * n)
+//   dy_u = go (t - h) update (1 - update)
+//   dy_n = go update (1 - t^2) reset
+//   dy_r = go update (1 - t^2) n reset (1 - reset)
+//   dgn = dy * scale
+//   dG = rstd (dgn - mean(dgn) - gn mean(dgn gn))   -> bf16, the operand of the three products
+//   dh' direct term (1 - update) go                  -> f32 (dh = this + dG . w_hh^T)
+//   d_scale += dy gn, d_bias += dy                   -> f32, the block's part
+//
+// One block of 1024 threads per `rows` consecutive rows, taken one after
+// another: one row (each of the posterior's 16-64 rows has a block), or
+// about M / 256 of the dream's 1024-1536 rows, so that the blocks' parts of
+// d_scale and d_bias stay few (256 x 6H floats). Shared memory holds the
+// row's gates (then its normalised gates), dgn, and the block's two sums:
+// 4 x 3H floats (192 KB at H = 4096). col_sum_kernel then adds the parts
+// column by column in block order: a fixed order and no atomics, so a step
+// replayed from CUDA graphs repeats the eager one bit for bit.
+
+namespace k1_bwd {
+
+using namespace k1;
+
+constexpr int THREADS = ROW_THREADS;
+
+// The forward's gate products (stopped before its LayerNorm pass).
+template <int MT>
+__global__ void __launch_bounds__(skinny::THREADS)
+skinny_gates(const bf16* __restrict__ x, const bf16* __restrict__ h,
+             const bf16* __restrict__ w_ih, const bf16* __restrict__ w_hh,
+             float* __restrict__ parts, int M, int In, int H, int kc) {
+  skinny::gates_tile<MT>(x, h, w_ih, w_hh, parts, M, In, H, kc);
+}
+
+__global__ void __launch_bounds__(wide::THREADS, 1)
+wide_gates(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_h,
+           const __grid_constant__ CUtensorMap tm_wih, const __grid_constant__ CUtensorMap tm_whh,
+           const bf16* __restrict__ h, const float* __restrict__ scale,
+           const float* __restrict__ bias, float* __restrict__ out,
+           float* __restrict__ gates, int M, int In, int H) {
+  wide::gates_tile<false>(tm_x, tm_h, tm_wih, tm_whh, h, scale, bias, out, gates, M, In, H);
+}
+
+__global__ void __launch_bounds__(generic::THREADS)
+generic_gates(const bf16* __restrict__ x, const bf16* __restrict__ h,
+              const bf16* __restrict__ w_ih, const bf16* __restrict__ w_hh,
+              float* __restrict__ gates, int M, int In, int H) {
+  generic::gates_tile(x, h, w_ih, w_hh, gates, M, In, H);
+}
+
+__host__ __device__ constexpr size_t smem_bytes(int H, bool params) {
+  return (size_t)(params ? 4 : 2) * 3 * H * sizeof(float);
+}
+
+__global__ void __launch_bounds__(THREADS)
+ln_gate_backward(const float* __restrict__ parts, int nsplit, const bf16* __restrict__ h,
+                const float* __restrict__ scale, const float* __restrict__ bias,
+                const float* __restrict__ grad_out, bf16* __restrict__ dG, float* __restrict__ dh,
+                float* __restrict__ param_parts, int M, int H, int rows) {
+  extern __shared__ float4 g4[];
+  __shared__ float red[THREADS / 32];
+  const int N = 3 * H;
+  float* g = reinterpret_cast<float*>(g4);  // the row's gates, then its normalised gates
+  float* dgn = g + N;
+  float* acc_s = dgn + N;  // the block's sums of dy * gn and of dy (with param_parts only)
+  float* acc_b = acc_s + N;
+  const bool params = param_parts != nullptr;
+  // A thread owns the same hidden units (and their three columns) in every
+  // row: no other thread touches their acc_s / acc_b, which need no barrier.
+  if (params)
+    for (int j = threadIdx.x; j < H; j += THREADS)
+#pragma unroll
+      for (int q = 0; q < 3; ++q) acc_s[q * H + j] = acc_b[q * H + j] = 0.0f;
+  const int r_begin = blockIdx.x * rows, r_end = min(M, r_begin + rows);
+  for (int row = r_begin; row < r_end; ++row) {
+    // The gates, summed over the partial rows as ln_gate_kernel sums them.
+    float s = 0.0f;
+    if (N % 4 == 0) {
+      for (int j = threadIdx.x; j < N / 4; j += THREADS) {
+        float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll 4
+        for (int p = 0; p < nsplit; ++p) {
+          const float4 q =
+              *reinterpret_cast<const float4*>(parts + ((size_t)p * M + row) * N + 4 * j);
+          v.x += q.x;
+          v.y += q.y;
+          v.z += q.z;
+          v.w += q.w;
+        }
+        *reinterpret_cast<float4*>(g + 4 * j) = v;
+        s += (v.x + v.y) + (v.z + v.w);
+      }
+    } else {
+      for (int j = threadIdx.x; j < N; j += THREADS) {
+        float v = 0.0f;
+        for (int p = 0; p < nsplit; ++p) v += parts[((size_t)p * M + row) * N + j];
+        g[j] = v;
+        s += v;
+      }
+    }
+    const float mean = block_sum(s, red) / N;
+    float var = 0.0f;
+    for (int j = threadIdx.x; j < N; j += THREADS) {
+      const float d = g[j] - mean;
+      var += d * d;
+    }
+    const float rstd = rsqrtf(block_sum(var, red) / N + LN_EPS);
+
+    float sum_d = 0.0f, sum_dg = 0.0f;
+    for (int j = threadIdx.x; j < H; j += THREADS) {
+      float gn[3], y[3], dy[3];
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        gn[q] = (g[q * H + j] - mean) * rstd;
+        y[q] = gn[q] * scale[q * H + j] + bias[q * H + j];
+      }
+      const float reset = sigmoid(y[0]), update = sigmoid(y[1] - 1.0f);
+      const float t = tanh_fast(reset * y[2]);
+      const size_t o = (size_t)row * H + j;
+      const float go = grad_out[o];
+      if (dh != nullptr) dh[o] = (1.0f - update) * go;
+      const float dt = go * update * (1.0f - t * t);
+      dy[0] = dt * y[2] * reset * (1.0f - reset);
+      dy[1] = go * (t - to_f32(h[o])) * update * (1.0f - update);
+      dy[2] = dt * reset;
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        const int c = q * H + j;
+        const float d = dy[q] * scale[c];
+        g[c] = gn[q];
+        dgn[c] = d;
+        sum_d += d;
+        sum_dg += d * gn[q];
+        if (params) {
+          acc_s[c] += dy[q] * gn[q];
+          acc_b[c] += dy[q];
+        }
+      }
+    }
+    const float mean_d = block_sum(sum_d, red) / N;
+    const float mean_dg = block_sum(sum_dg, red) / N;
+    for (int j = threadIdx.x; j < H; j += THREADS)
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        const int c = q * H + j;
+        dG[(size_t)row * N + c] = __float2bfloat16(rstd * (dgn[c] - mean_d - g[c] * mean_dg));
+      }
+    __syncthreads();  // the next row refills g
+  }
+  if (params)
+    for (int j = threadIdx.x; j < H; j += THREADS)
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        const int c = q * H + j;
+        param_parts[(size_t)blockIdx.x * 2 * N + c] = acc_s[c];
+        param_parts[(size_t)blockIdx.x * 2 * N + N + c] = acc_b[c];
+      }
+}
+
+// out[c] = sum over p < P of parts[p * n + c], p in order.
+__global__ void col_sum(const float* __restrict__ parts, int P, int n,
+                               float* __restrict__ out) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= n) return;
+  float s = 0.0f;
+#pragma unroll 8
+  for (int p = 0; p < P; ++p) s += parts[(size_t)p * n + c];
+  out[c] = s;
+}
+
+}  // namespace k1_bwd
+
+namespace k1 {
 
 // ---------------------------------------------------------------------------
 // Host side.
@@ -1297,22 +1530,31 @@ int launch_ln_gate(const float* parts, int nsplit, const HT* h, const float* sca
   return (int)cudaGetLastError();
 }
 
-int launch_skinny(const bf16* x, const bf16* h, const bf16* w_ih, const bf16* w_hh,
-                  const float* scale, const float* bias, float* parts, float* out, int M, int In,
-                  int H, int nsplit, int kc, cudaStream_t s) {
+// skinny's partial gates alone (nsplit x M x 3H f32 in `parts`); `recompute`:
+// the backward's kernel of the same products (k1_bwd::skinny_gates).
+int launch_skinny_gates(const bf16* x, const bf16* h, const bf16* w_ih, const bf16* w_hh,
+                        float* parts, int M, int In, int H, int nsplit, int kc, cudaStream_t s,
+                        bool recompute = false) {
   const int K = In + H;
   if (M > 64 || In % 8 != 0 || H % 64 != 0 || kc % 64 != 0 || kc > 512 || nsplit < 1 ||
-      (long)nsplit * kc < K || (long)(nsplit - 1) * kc >= K)
+      (long)nsplit * kc < K || (long)(nsplit - 1) * kc >= K || parts == nullptr)
     return kErrBadPlan;
   const int mt = M <= 32 ? 2 : 4;
   const int smem = skinny::smem_bytes(mt, kc);
   auto kern = mt == 2 ? skinny::gates_kernel<2> : skinny::gates_kernel<4>;
+  if (recompute) kern = mt == 2 ? k1_bwd::skinny_gates<2> : k1_bwd::skinny_gates<4>;
   const int err = allow_smem((const void*)kern, smem);
   if (err) return err;
   kern<<<dim3(3 * H / skinny::BN, nsplit), skinny::THREADS, smem, s>>>(x, h, w_ih, w_hh, parts, M,
                                                                        In, H, kc);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+int launch_skinny(const bf16* x, const bf16* h, const bf16* w_ih, const bf16* w_hh,
+                  const float* scale, const float* bias, float* parts, float* out, int M, int In,
+                  int H, int nsplit, int kc, cudaStream_t s) {
+  const int err = launch_skinny_gates(x, h, w_ih, w_hh, parts, M, In, H, nsplit, kc, s);
+  if (err) return err;
   return launch_ln_gate(parts, nsplit, h, scale, bias, out, M, H, s);
 }
 
@@ -1368,8 +1610,9 @@ int launch_wide_f32(const float* x, const float* h, const float* w_ih, const flo
 template <bool kCluster>
 int launch_wide_kernel(const CUtensorMap (&maps)[4], const bf16* h, const float* scale,
                        const float* bias, float* out, float* gates, int M, int In, int H,
-                       cudaStream_t s) {
+                       cudaStream_t s, bool recompute = false) {
   auto kern = wide::gates_kernel<kCluster>;
+  if (recompute && !kCluster) kern = k1_bwd::wide_gates;
   const int err = allow_smem((const void*)kern, (int)wide::SMEM);
   if (err) return err;
   cudaLaunchConfig_t cfg = {};
@@ -1390,23 +1633,75 @@ int launch_wide_kernel(const CUtensorMap (&maps)[4], const bf16* h, const float*
   return (int)cudaGetLastError();
 }
 
-int launch_wide(const bf16* x, const bf16* h, const bf16* w_ih, const bf16* w_hh,
-                const float* scale, const float* bias, float* gates, float* out, int M, int In,
-                int H, cudaStream_t s) {
+// The TMA maps of wide's four operands.
+int wide_maps(CUtensorMap (&maps)[4], const bf16* x, const bf16* h, const bf16* w_ih,
+              const bf16* w_hh, int M, int In, int H) {
   if (M <= 64 || In % 8 != 0 || H % wide::HB != 0) return kErrBadPlan;
-  CUtensorMap maps[4];
   const CUtensorMapSwizzle sw_a = CU_TENSOR_MAP_SWIZZLE_64B, sw_b = CU_TENSOR_MAP_SWIZZLE_128B;
   int err = make_map(&maps[0], x, M, In, wide::BM, wide::BK, sw_a);
   if (!err) err = make_map(&maps[1], h, M, H, wide::BM, wide::BK, sw_a);
   if (!err) err = make_map(&maps[2], w_ih, In, 3 * H, wide::BK, 64, sw_b);
   if (!err) err = make_map(&maps[3], w_hh, H, 3 * H, wide::BK, 64, sw_b);
+  return err;
+}
+
+// wide's gates alone (M x 3H f32 in `gates`), at any H: the unclustered
+// kernel; `recompute`: the backward's kernel of it (k1_bwd::wide_gates).
+int launch_wide_gates(const bf16* x, const bf16* h, const bf16* w_ih, const bf16* w_hh,
+                      float* gates, int M, int In, int H, cudaStream_t s, bool recompute = false) {
+  CUtensorMap maps[4];
+  const int err = wide_maps(maps, x, h, w_ih, w_hh, M, In, H);
   if (err) return err;
-  if (H / wide::HB <= wide::MAX_CLUSTER)
-    return launch_wide_kernel<true>(maps, h, scale, bias, out, gates, M, In, H, s);
   if (gates == nullptr) return kErrBadPlan;
-  err = launch_wide_kernel<false>(maps, h, scale, bias, out, gates, M, In, H, s);
+  return launch_wide_kernel<false>(maps, h, nullptr, nullptr, nullptr, gates, M, In, H, s,
+                                   recompute);
+}
+
+int launch_wide(const bf16* x, const bf16* h, const bf16* w_ih, const bf16* w_hh,
+                const float* scale, const float* bias, float* gates, float* out, int M, int In,
+                int H, cudaStream_t s) {
+  if (H % wide::HB == 0 && H / wide::HB <= wide::MAX_CLUSTER) {
+    CUtensorMap maps[4];
+    const int err = wide_maps(maps, x, h, w_ih, w_hh, M, In, H);
+    if (err) return err;
+    return launch_wide_kernel<true>(maps, h, scale, bias, out, gates, M, In, H, s);
+  }
+  const int err = launch_wide_gates(x, h, w_ih, w_hh, gates, M, In, H, s);
   if (err) return err;
   return launch_ln_gate(gates, 1, h, scale, bias, out, M, H, s);
+}
+
+// generic's gates alone (M x 3H f32 in `gates`); `recompute`: the backward's
+// kernel of it (k1_bwd::generic_gates).
+int launch_generic_gates(const bf16* x, const bf16* h, const bf16* w_ih, const bf16* w_hh,
+                         float* gates, int M, int In, int H, cudaStream_t s,
+                         bool recompute = false) {
+  if (gates == nullptr) return kErrBadPlan;
+  const dim3 grid((3 * H + generic::BN - 1) / generic::BN, (M + generic::BM - 1) / generic::BM);
+  auto kern = recompute ? k1_bwd::generic_gates : generic::gates_kernel;
+  kern<<<grid, generic::THREADS, 0, s>>>(x, h, w_ih, w_hh, gates, M, In, H);
+  return (int)cudaGetLastError();
+}
+
+// The LayerNorm/gate backward of `rows`-row blocks, then (with param_parts)
+// the blocks' parts of d_scale and d_bias summed into dparams (2 x 3H).
+int launch_backward(const float* parts, int nsplit, const bf16* h, const float* scale,
+                    const float* bias, const float* grad_out, bf16* dG, float* dh,
+                    float* param_parts, float* dparams, int M, int H, int rows, cudaStream_t s) {
+  const bool params = param_parts != nullptr;
+  if (rows < 1 || nsplit < 1 || parts == nullptr || dG == nullptr || params != (dparams != nullptr))
+    return kErrBadPlan;
+  const int blocks = (M + rows - 1) / rows;
+  const size_t smem = k1_bwd::smem_bytes(H, params);
+  const int err = allow_smem((const void*)k1_bwd::ln_gate_backward, (int)smem);
+  if (err) return err;
+  k1_bwd::ln_gate_backward<<<blocks, k1_bwd::THREADS, smem, s>>>(
+      parts, nsplit, h, scale, bias, grad_out, dG, dh, param_parts, M, H, rows);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || !params) return (int)e;
+  const int n = 6 * H;
+  k1_bwd::col_sum<<<(n + 255) / 256, 256, 0, s>>>(param_parts, blocks, n, dparams);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace k1
@@ -1433,10 +1728,8 @@ extern "C" int gru_dv2_forward(int schedule, const void* x, const void* h, const
     case kWide:
       return launch_wide(xb, hb, wib, whb, sc, bi, w, o, M, In, H, s);
     case kGeneric: {
-      const dim3 grid((3 * H + generic::BN - 1) / generic::BN, (M + generic::BM - 1) / generic::BM);
-      generic::gates_kernel<<<grid, generic::THREADS, 0, s>>>(xb, hb, wib, whb, w, M, In, H);
-      const cudaError_t e = cudaGetLastError();
-      if (e != cudaSuccess) return (int)e;
+      const int err = launch_generic_gates(xb, hb, wib, whb, w, M, In, H, s);
+      if (err) return err;
       return launch_ln_gate(w, 1, hb, sc, bi, o, M, H, s);
     }
     case kF32: {
@@ -1460,6 +1753,50 @@ extern "C" int gru_dv2_forward(int schedule, const void* x, const void* h, const
     default:
       return kErrBadPlan;
   }
+}
+
+// The pre-norm gates x . w_ih + h . w_hh of a bf16 schedule (skinny, wide or
+// generic), stopped before its LayerNorm pass: `work` gets skinny's nsplit
+// partial sums (nsplit x M x 3H f32) or, for wide and generic, M x 3H f32,
+// the same sums the forward normalises.
+extern "C" int gru_dv2_gates(int schedule, const void* x, const void* h, const void* w_ih,
+                             const void* w_hh, void* work, int M, int In, int H, int nsplit,
+                             int kc, void* stream) {
+  using namespace k1;
+  if (M <= 0 || In <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bf16 *xb = static_cast<const bf16*>(x), *hb = static_cast<const bf16*>(h);
+  const bf16 *wib = static_cast<const bf16*>(w_ih), *whb = static_cast<const bf16*>(w_hh);
+  float* w = static_cast<float*>(work);
+  switch (schedule) {
+    case kSkinny:
+      return launch_skinny_gates(xb, hb, wib, whb, w, M, In, H, nsplit, kc, s, true);
+    case kWide:
+      return launch_wide_gates(xb, hb, wib, whb, w, M, In, H, s, true);
+    case kGeneric:
+      return launch_generic_gates(xb, hb, wib, whb, w, M, In, H, s, true);
+    default:
+      return kErrBadPlan;
+  }
+}
+
+// The LayerNorm and gate backward of one K1 step on `stream`, from the gates
+// of gru_dv2_gates (`parts`, nsplit partial sums), h (bf16), scale, bias and
+// dL/dh' (f32, M x H): dG (M x 3H bf16), the direct term of dh (M x H f32;
+// skipped when dh is null) and, when param_parts (blocks x 2 x 3H f32, blocks
+// = ceil(M / rows)) is given, d_scale and d_bias in dparams (2 x 3H f32).
+extern "C" int gru_dv2_backward(const void* parts, int nsplit, const void* h, const void* scale,
+                                const void* bias, const void* grad_out, void* dG, void* dh,
+                                void* param_parts, void* dparams, int M, int H, int rows,
+                                void* stream) {
+  using namespace k1;
+  if (M <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  return launch_backward(static_cast<const float*>(parts), nsplit, static_cast<const bf16*>(h),
+                         static_cast<const float*>(scale), static_cast<const float*>(bias),
+                         static_cast<const float*>(grad_out), static_cast<bf16*>(dG),
+                         static_cast<float*>(dh), static_cast<float*>(param_parts),
+                         static_cast<float*>(dparams), M, H, rows,
+                         static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* gru_dv2_error_string(int code) {

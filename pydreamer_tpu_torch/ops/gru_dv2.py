@@ -16,9 +16,20 @@ Counterpart of ``pydreamer_tpu/ops/gru_pallas.py`` (the Pallas kernel
   plain version; on a CUDA tensor it ALWAYS launches a K1 schedule
   (``csrc/gru_dv2.cu``) through :class:`GRUDv2Function`, and a build or
   launch error raises.
-* The backward recomputes through the plain version (as JAX's ``_bwd``,
-  gru_pallas.py:114-119, recomputes through plain XLA); there is no backward
-  kernel. It runs in the ``pd.k1_backward`` span (``tracing.py``).
+* The backward (:class:`GRUDv2Function`, in the ``pd.k1_backward`` span of
+  ``tracing.py``) recomputes the gates, as JAX's ``_bwd`` (gru_pallas.py:
+  114-119) does, and follows the operands' dtype. bf16 operands take
+  :func:`k1_backward`, at the forward's precision: the forward's own
+  schedule stopped before its LayerNorm pass recomputes the gates on the
+  tensor cores (C entry ``gru_dv2_gates``), one kernel takes the LayerNorm
+  and gate backward (``gru_dv2_backward``: the gate gradient dG in bf16,
+  the direct term of dh, d_scale and d_bias summed in a fixed order), and
+  three products with bf16 operands and f32 sums make dx, dh and dW from
+  dG, each only where autograd asks for it. No float32 copy of a weight is
+  made; a width whose 4 x 3H floats a block pass the 227 KB of shared
+  memory a block may hold (H > 4842) raises at launch, as the forward does
+  on a failed launch. float32 operands take autograd through the plain
+  version, as before. ``K1_BACKWARDS`` counts the calls by route and rows.
 
 Schedules. :func:`plan` picks one from (M, In, H, dtype) alone (see the
 header of ``csrc/gru_dv2.cu`` for what bounds each and how it is built):
@@ -73,8 +84,9 @@ import torch
 from ..tracing import TALLIES, span
 
 __all__ = ["gru_dv2", "gru_dv2_reference", "gru_dv2_cuda", "GRUDv2Function",
-           "LAUNCHES", "SCHEDULES", "Plan", "plan", "pick_schedule", "build",
-           "SOURCE", "BUILD_DIR", "NVCC_FLAGS"]
+           "LAUNCHES", "K1_BACKWARDS", "SCHEDULES", "Plan", "plan", "pick_schedule", "build",
+           "SOURCE", "BUILD_DIR", "NVCC_FLAGS", "backward_route", "backward_rows",
+           "k1_backward", "ln_gate_backward_reference"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "gru_dv2.cu"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -89,6 +101,7 @@ SKINNY_MAX_KC = 512    # weight rows per skinny block
 SKINNY_F32_MAX_KC = 256  # weight rows per skinny_f32 block: three blocks to an SM
 WIDE_HB = 128          # hidden units per wide block
 WIDE_MAX_CLUSTER = 8   # blocks of a row tile in one cluster (the portable maximum)
+BACKWARD_BLOCKS = 256  # blocks of the LayerNorm/gate backward over many rows
 
 
 @dataclass(frozen=True)
@@ -157,7 +170,25 @@ class _LaunchCounter:
         self.by_schedule: dict[str, int] = {}
 
 
+class _BackwardCounter:
+    """K1 backward calls since the last ``reset()``, by route (``kernel``: the
+    bf16 pass of :func:`k1_backward`; ``plain``: autograd through the plain
+    version) and by row count M."""
+
+    def __init__(self):
+        self.reset()
+
+    def add(self, rows: int, route: str) -> None:
+        self.by_route[route] = self.by_route.get(route, 0) + 1
+        self.by_rows[rows] = self.by_rows.get(rows, 0) + 1
+
+    def reset(self) -> None:
+        self.by_route: dict[str, int] = {}
+        self.by_rows: dict[int, int] = {}
+
+
 LAUNCHES = TALLIES.register(_LaunchCounter(), "count", "by_rows", "by_schedule")
+K1_BACKWARDS = TALLIES.register(_BackwardCounter(), "by_route", "by_rows")
 _lib = None
 
 
@@ -211,6 +242,12 @@ def _load():
         lib.gru_dv2_forward.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
                                         + [ctypes.c_int] * 5 + [ctypes.c_void_p])
         lib.gru_dv2_forward.restype = ctypes.c_int
+        lib.gru_dv2_gates.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
+                                      + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        lib.gru_dv2_gates.restype = ctypes.c_int
+        lib.gru_dv2_backward.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 8
+                                         + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        lib.gru_dv2_backward.restype = ctypes.c_int
         lib.gru_dv2_error_string.argtypes = [ctypes.c_int]
         lib.gru_dv2_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -252,30 +289,159 @@ def gru_dv2_cuda(x, h, w_ih, w_hh, scale, bias) -> torch.Tensor:
     return _launch(p, *map(_aligned, (x, h, w_ih, w_hh)), scale, bias)
 
 
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _call(entry: str, what: str, device, *args) -> None:
+    """Call the library's ``entry`` with ``args`` and the current stream of
+    ``device``, on that device; raise on an error code."""
+    lib = _load()
+    args = (*args, torch.cuda.current_stream(device).cuda_stream)
+    if device.index in (None, torch.cuda.current_device()):
+        err = getattr(lib, entry)(*args)
+    else:  # the kernels launch on the current device
+        with torch.cuda.device(device):
+            err = getattr(lib, entry)(*args)
+    if err != 0:
+        raise RuntimeError(f"gru_dv2 {what} launch failed: {lib.gru_dv2_error_string(err).decode()}")
+
+
 def _launch(p: Plan, x, h, w_ih, w_hh, scale, bias) -> torch.Tensor:
     """Launch the schedule of ``p`` on checked CUDA tensors."""
     device, (M, In), H = x.device, x.shape, h.shape[-1]
-    lib = _load()
     work = torch.empty((p.workspace,), dtype=torch.float32, device=device) if p.workspace else None
     out = torch.empty((M, H), dtype=torch.float32, device=device)
-    args = (SCHEDULES.index(p.schedule), x.data_ptr(), h.data_ptr(), w_ih.data_ptr(),
-            w_hh.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            work.data_ptr() if work is not None else None, out.data_ptr(),
-            M, In, H, p.nsplit, p.kc, torch.cuda.current_stream(device).cuda_stream)
-    if device.index in (None, torch.cuda.current_device()):
-        err = lib.gru_dv2_forward(*args)
-    else:  # the kernels launch on the current device
-        with torch.cuda.device(device):
-            err = lib.gru_dv2_forward(*args)
-    if err != 0:
-        raise RuntimeError(f"gru_dv2 {p.schedule} launch failed: "
-                           f"{lib.gru_dv2_error_string(err).decode()}")
+    _call("gru_dv2_forward", p.schedule, device, SCHEDULES.index(p.schedule), x.data_ptr(),
+          h.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+          _ptr(work), out.data_ptr(), M, In, H, p.nsplit, p.kc)
     LAUNCHES.add(M, p.schedule)
     return out
 
 
+def backward_route(dtype: torch.dtype) -> str:
+    """K1's backward for operands of ``dtype``: ``kernel`` (the bf16 pass,
+    :func:`k1_backward`) for bfloat16, else ``plain`` (autograd through the
+    plain version)."""
+    return "kernel" if dtype == torch.bfloat16 else "plain"
+
+
+def backward_rows(M: int) -> int:
+    """Rows one block of the LayerNorm/gate backward takes: one for the few
+    rows of the posterior loop (each row its block), else enough rows that
+    about ``BACKWARD_BLOCKS`` blocks cover M (the dream's 1024-1536)."""
+    return 1 if M <= SKINNY_MAX_ROWS else math.ceil(M / BACKWARD_BLOCKS)
+
+
+def _recompute_gates(x, h, w_ih, w_hh) -> torch.Tensor:
+    """K1's pre-norm gates x @ w_ih + h @ w_hh on bf16 CUDA operands, from the
+    schedule K1's forward runs at the shape, stopped before its LayerNorm
+    pass -> (nsplit, M, 3H) float32 partial sums (``skinny``'s K split; one
+    for ``wide`` and ``generic``): the sums the forward normalised."""
+    M, In = x.shape
+    H = h.shape[-1]
+    p = plan(M, In, H, x.dtype, h.dtype, w_ih.dtype, w_hh.dtype)
+    parts = torch.empty((p.nsplit, M, 3 * H), dtype=torch.float32, device=x.device)
+    x, h, w_ih, w_hh = map(_aligned, (x, h, w_ih, w_hh))
+    _call("gru_dv2_gates", f"{p.schedule} gates", x.device, SCHEDULES.index(p.schedule),
+          x.data_ptr(), h.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(), parts.data_ptr(),
+          M, In, H, p.nsplit, p.kc)
+    return parts
+
+
+def _ln_gate_backward_cuda(parts, h, scale, bias, grad_out, want_dh: bool, want_params: bool):
+    """The LayerNorm/gate backward kernel -> dG (M, 3H) bf16, the direct dh
+    term (M, H) f32 or None, d_scale and d_bias (3H) f32 or None."""
+    M, H = h.shape
+    N, device = 3 * H, h.device
+    rows = backward_rows(M)
+    blocks = math.ceil(M / rows)
+    dG = torch.empty((M, N), dtype=torch.bfloat16, device=device)
+    dh = torch.empty((M, H), dtype=torch.float32, device=device) if want_dh else None
+    param_parts = dparams = None
+    if want_params:
+        param_parts = torch.empty((blocks, 2, N), dtype=torch.float32, device=device)
+        dparams = torch.empty((2, N), dtype=torch.float32, device=device)
+    _call("gru_dv2_backward", "LayerNorm/gate backward", device, parts.data_ptr(), parts.shape[0],
+          h.data_ptr(), scale.data_ptr(), bias.data_ptr(), grad_out.data_ptr(), dG.data_ptr(),
+          _ptr(dh), _ptr(param_parts), _ptr(dparams), M, H, rows)
+    return (dG, dh) + ((dparams[0], dparams[1]) if want_params else (None, None))
+
+
+def ln_gate_backward_reference(gates, h, scale, bias, grad_out):
+    """Plain version of the LayerNorm/gate backward kernel, in float32: from
+    the pre-norm gates (M, 3H), h, scale, bias and dL/dh' -> the gate
+    gradient dG (M, 3H), the direct term of dh ``(1 - update) * dL/dh'``
+    (M, H), d_scale and d_bias (3H)."""
+    g = gates.float()
+    mean = g.mean(-1, keepdim=True)
+    rstd = torch.rsqrt((g - mean).square().mean(-1, keepdim=True) + LN_EPS)
+    gn = (g - mean) * rstd
+    r, u, n = (gn * scale.float() + bias.float()).chunk(3, -1)
+    reset = torch.sigmoid(r)
+    update = torch.sigmoid(u - 1.0)
+    t = torch.tanh(reset * n)
+    go = grad_out.float()
+    dt = go * update * (1.0 - t * t)
+    dy = torch.cat([dt * n * reset * (1.0 - reset),
+                    go * (t - h.float()) * update * (1.0 - update),
+                    dt * reset], -1)
+    dgn = dy * scale.float()
+    dG = rstd * (dgn - dgn.mean(-1, keepdim=True) - gn * (dgn * gn).mean(-1, keepdim=True))
+    return dG, (1.0 - update) * go, (dy * gn).sum(0), dy.sum(0)
+
+
+def _mm_f32(a, b, acc=None) -> torch.Tensor:
+    """a @ b (+ acc) as float32: the operands' own dtype on the tensor cores,
+    f32 sums, an f32 result."""
+    if a.is_cuda and a.dtype != torch.float32:
+        if acc is None:
+            return torch.mm(a, b, out_dtype=torch.float32)
+        return torch.addmm(acc, a, b, out_dtype=torch.float32)
+    out = a.float() @ b.float()  # the CPU's plain version
+    return out if acc is None else out + acc
+
+
+def k1_backward(x, h, w_ih, w_hh, scale, bias, grad_out, needs) -> list:
+    """K1's backward at the operands' precision -> the gradients of (x, h,
+    w_ih, w_hh, scale, bias), None where ``needs`` (autograd's
+    ``needs_input_grad``) does not ask for one.
+
+    The gates are recomputed as the forward computed them; the LayerNorm and
+    gate backward gives dG, rounded to the operands' dtype, the one new
+    rounding; then dx = dG w_ih^T, dh = (1 - update) dL/dh' + dG w_hh^T,
+    dw_ih = x^T dG and dw_hh = h^T dG, with f32 sums, each rounded once to
+    its leaf's dtype. On CUDA (bf16) the first two steps are K1's kernels; on
+    the CPU their plain versions, the same arithmetic.
+    """
+    grads = [None] * 6
+    dt = x.dtype
+    if x.is_cuda:
+        dG, dh_term, d_scale, d_bias = _ln_gate_backward_cuda(
+            _recompute_gates(x, h, w_ih, w_hh), h, scale, bias, grad_out.float().contiguous(),
+            needs[1], needs[4] or needs[5])
+    else:
+        gates = _mm_f32(x, w_ih) + _mm_f32(h, w_hh)
+        dG, dh_term, d_scale, d_bias = ln_gate_backward_reference(gates, h, scale, bias, grad_out)
+        dG = dG.to(dt)
+    if needs[0]:
+        grads[0] = _mm_f32(dG, w_ih.t()).to(dt)
+    if needs[1]:
+        grads[1] = _mm_f32(dG, w_hh.t(), dh_term).to(dt)
+    for i, a in ((2, x), (3, h)):
+        if needs[i]:  # K = M rows: cuBLAS sums in f32 and rounds once
+            grads[i] = torch.mm(a.t(), dG) if a.is_cuda else _mm_f32(a.t(), dG).to(dt)
+    if needs[4]:
+        grads[4] = d_scale
+    if needs[5]:
+        grads[5] = d_bias
+    return grads
+
+
 class GRUDv2Function(torch.autograd.Function):
-    """Forward = the K1 kernel; backward = autograd through the plain version."""
+    """Forward = the K1 kernel; backward = :func:`k1_backward` for bf16
+    operands, autograd through the plain version otherwise
+    (:func:`backward_route`)."""
 
     @staticmethod
     def forward(ctx, x, h, w_ih, w_hh, scale, bias):
@@ -285,14 +451,20 @@ class GRUDv2Function(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_out):
         inputs = ctx.saved_tensors
-        wanted = [i for i, need in enumerate(ctx.needs_input_grad) if need]
+        needs = ctx.needs_input_grad
+        wanted = [i for i, need in enumerate(needs) if need]
         grads = [None] * len(inputs)
         if not wanted:
             return tuple(grads)
-        with span("pd.k1_backward"), torch.enable_grad():
-            leaves = [t.detach().requires_grad_(i in wanted) for i, t in enumerate(inputs)]
-            out = gru_dv2_reference(*leaves)
-            got = torch.autograd.grad(out, [leaves[i] for i in wanted], grad_out)
+        route = backward_route(inputs[0].dtype)
+        K1_BACKWARDS.add(grad_out.shape[0], route)
+        with span("pd.k1_backward"):
+            if route == "kernel":
+                return tuple(k1_backward(*inputs, grad_out, needs))
+            with torch.enable_grad():
+                leaves = [t.detach().requires_grad_(i in wanted) for i, t in enumerate(inputs)]
+                out = gru_dv2_reference(*leaves)
+                got = torch.autograd.grad(out, [leaves[i] for i in wanted], grad_out)
         for i, g in zip(wanted, got):
             grads[i] = g
         return tuple(grads)

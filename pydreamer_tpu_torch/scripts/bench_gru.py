@@ -18,7 +18,7 @@ With ``--cells`` it times K1 alone at the shapes given instead (``MxInxH``,
 comma-separated, or ``dv3`` for DreamerV3 XL's two: ``16x1024x4096``, the
 posterior loop's ``skinny``, and ``1024x1024x4096``, the dream's ``wide``):
 one line a shape with the schedule, the ms of a forward and of a forward and
-backward (K1's backward is a float32 recompute through the plain version),
+backward (K1's backward: its bf16 pass on bf16 operands, ``ops/gru_dv2.py::k1_backward``),
 and the same of the plain version, each the median of ``--steps`` calls
 after ``--warmup``, synchronized on the host's clock. bf16 operands on the
 card; on the CPU both sides run the plain version in float32.

@@ -73,8 +73,8 @@ def profile_step(ts, obs, state, step: int, n: int = 1):
     ln = [e for e in k1_events if "ln_gate_kernel" in e.key]
     by_schedule["ln_gate_kernel"] = dict(recorded=sum(e.count for e in ln),
                                          ms=sum(getattr(e, attr) for e in ln) / 1e3)
-    # K1's backward recomputes the cell through the plain version in float32:
-    # its products are the step's only float32 GEMMs (the model's run in bf16).
+    # The step's float32 GEMMs: none in a bf16 step (K1's backward, which
+    # recomputed through the plain version in float32, runs bf16 products).
     f32_gemms = [e for e in dev_events if "gemm" in e.key.lower() and "k1::" not in e.key
                  and ("f32f32" in e.key or "sgemm" in e.key)]
     report = dict(wall_ms=wall_ms, device_busy_ms=busy_us / 1e3, k1_kernels=k1_rows,

@@ -22,7 +22,7 @@ trace readers take for the CUDA runtime's own calls):
 * ``pd.actor_critic``: ``ActorCritic.training_step`` (GAE, actor and critic
   losses);
 * ``pd.backward``: the loss sum and the one ``backward()``; inside it
-  ``pd.k1_backward``, ``GRUDv2Function.backward`` (K1's float32 recompute),
+  ``pd.k1_backward``, ``GRUDv2Function.backward`` (K1's backward and its recompute),
   which runs on autograd's device thread;
 * ``pd.optimizer``: the critic-target copies, the gradient zero-fill, the
   norms, the clip and ``AdamW.step`` (and DreamerV3's slow-critic EMA);

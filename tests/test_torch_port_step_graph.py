@@ -21,7 +21,7 @@ from pydreamer_tpu_torch.models import rnn
 from pydreamer_tpu_torch.models.dreamer import Dreamer
 from pydreamer_tpu_torch.models.noise import GeneratorNoise
 from pydreamer_tpu_torch.ops import gru_dv2
-from pydreamer_tpu_torch.ops.gru_dv2 import LAUNCHES
+from pydreamer_tpu_torch.ops.gru_dv2 import K1_BACKWARDS, LAUNCHES
 from pydreamer_tpu_torch.scripts.flagship import make_batch, make_conf
 from pydreamer_tpu_torch.tracing import COUNTERS, NULL, span
 from pydreamer_tpu_torch.training import train_step
@@ -239,14 +239,16 @@ def test_each_replay_credits_what_the_captured_step_counted(monkeypatch):
     conf, model, ts, _ = _stepper(k1=True, monkeypatch=monkeypatch, precision="bfloat16")
     obs = make_batch(conf, device="cpu")
     state = [model.init_state(conf.batch_size)]
-    per_call = []
+    per_call, backwards = [], []
     for step in range(1, 6):
         COUNTERS.reset()
         LAUNCHES.reset()
+        K1_BACKWARDS.reset()
         state[0], *_ = ts(obs, state[0], step, seed=4)
         per_call.append((COUNTERS.weight_casts, LAUNCHES.count, dict(LAUNCHES.by_rows),
                          dict(LAUNCHES.by_schedule), COUNTERS.graph_replays,
                          COUNTERS.graph_captures, COUNTERS.train_steps))
+        backwards.append((dict(K1_BACKWARDS.by_route), dict(K1_BACKWARDS.by_rows)))
     T, B, H = conf.batch_length, conf.batch_size, conf.imag_horizon
     eager = per_call[0]
     assert eager[0] > 0 and eager[1:4] == (T + H, {B: T, T * B: H}, {"skinny": T, "wide": H})
@@ -254,9 +256,13 @@ def test_each_replay_credits_what_the_captured_step_counted(monkeypatch):
     assert per_call[1][:4] == eager[:4] and per_call[1][4:] == (1, 1, 1)   # capture + replay
     for replay in per_call[2:]:
         assert replay[:4] == eager[:4] and replay[4:] == (1, 0, 1)
+    # K1's backward: the posterior loop's T calls, the bf16 pass, in every call.
+    assert backwards == [({"kernel": T}, {B: T})] * 5
     delta = ts.graphs.captured[ts.signature(obs, state[0])].delta
-    assert {name: change for _, name, change in delta} == dict(
+    assert {name: change for c, name, change in delta if c is not K1_BACKWARDS} == dict(
         zip(("weight_casts", "count", "by_rows", "by_schedule"), eager[:4]))
+    assert {name: change for c, name, change in delta if c is K1_BACKWARDS} == dict(
+        zip(("by_route", "by_rows"), backwards[0]))
 
 
 def test_a_counter_registered_with_tallies_is_credited_by_each_replay(monkeypatch):
