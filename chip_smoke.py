@@ -1,258 +1,32 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``pydreamer_tpu_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--learning-only | --tools-only | --graph-only | --dv3-only | --backward-only]
 
-Phases (any failure exits non-zero; nothing is caught to carry on):
-
-1. Build kernel K1 (``ops/csrc/gru_dv2.cu``, nvcc for sm_90a) and print the
-   card's name and power limit as nvidia-smi reports them.
-2. Hold every K1 schedule against its plain PyTorch version: forward max-abs
-   error and the gradients of all six inputs (float32: the same plain
-   recompute, within ``GRAD_TOL``; bf16: K1's bf16 backward pass, within
-   ``BWD_WITNESS_FACTOR`` times what rounding dG to bf16 alone costs, at
-   most ``BWD_LIMIT_CAP``, as phase 20). ``skinny`` and ``wide`` at the
-   two main-path shapes (M=32 and M=1536 rows, In=1000, H=1024, bf16) and at
-   H=2048 (the ``defaults`` width), ``skinny_f32`` and ``wide_f32`` at the
-   same four shapes in float32 (3xTF32 on the tensor cores, held to the f32
-   tolerance with TF32 off in the plain version), ``generic`` and ``f32``
-   at small ragged shapes. Time each (CUDA graphs of many launches, cold and
-   warm L2) beside its bound (for f32 operands the faster of FFMA and
-   3xTF32, the route named), the plain version, the cuBLAS product of the
-   concatenated operands (``gemm_library_ms``), the unfused composition the
-   ``gru_layernorm_dv2_xla`` cell runs (``unfused_ms``), and, at H=1024, the
-   first design of the dtype at the same shape: ``generic`` (the first,
-   unpipelined bf16 design) or ``f32`` (the FFMA design, ``f32_ffma_ms``),
-   each held to the same tolerance. The port calls none of these
-   yardsticks. Then the fused cell under ``precision: float32`` on the
-   card: it must take ``skinny_f32``.
-3. Check the train step's forward at full width with the K1 cell against the
-   unfused ``gru_layernorm_dv2_xla`` cell (same weights, same noise).
-4. Drive the main path: the flagship Dreamer/Atari train step
-   (T=48, B=32, deter 1024, stoch 32x32, hidden 1000, cnn_depth 48, H=15,
-   bf16 compute, uint8 images, gru_type gru_layernorm_dv2) from random
-   weights made from a seed: 2 warm-up and 5 timed TrainStep calls. The K1
-   launch counter is set to 0 just before and read just after: T launches a
-   step must have taken ``skinny`` and H ``wide``, none ``generic``; so is
-   K1's backward tally (``K1_BACKWARDS``): T calls a step at M=B (the dream
-   is not differentiated under ``actor_grad: reinforce``), every one on the
-   bf16 pass (route ``kernel``).
-5. Profile one more step with torch.profiler: K1's kernels, device time and
-   launches, and the device's busy time in the step.
-6. Time the train step with the K1 cell against the unfused cell, in turns
-   (unfused, K1, K1, unfused; 5 steps per window).
-7. Inference shapes: hold ``skinny`` at M=1 and M=8 (In=1000, H=2048, bf16)
-   against its plain version, forward and six gradients, timed as in 2.
-8. The DMC path (``defaults`` + ``dmc``: deter 2048, action_dim 12,
-   ``actor_grad: dynamics``, ``actor_dist: trunc_normal``; DMC below is its
-   own copy): one forward and backward with the K1 cell and with the unfused
-   cell from the same weights and noise; the four losses and the actor's
-   gradient norm must agree. K1's backward runs at M=1536, H=2048 here.
-9. Drive the DMC train step: 2 warm-up and 5 timed TrainStep calls, counts
-   set to 0 just before and read just after (48 ``skinny`` and 15 ``wide`` a
-   step, none ``generic``; 48 K1 backward calls at M=32 and 15 at M=1536 a
-   step, all on the bf16 pass), a finite non-zero actor gradient norm, and no
-   world-model gradient from the actor loss alone. Then one log step
-   (``do_image_pred``, ``do_dream_tensors``: 48 + 47 skinny, 15 wide, finite
-   dream tensors of JAX's shapes) and one profiled step: busy time, K1's
-   kernels and the step's f32 GEMMs (K1's backward runs bf16 products).
-10. ``Dreamer.inference`` on the DMC model at B=1 and B=8: one ``skinny``
-   launch a call, finite actions in [-1, 1], host microseconds per call.
-11. The learner loop on the flagship model. K1 at the eval protocol's
-   shapes (``skinny`` M=10, ``wide`` M=480) against its plain version and
-   timed as in 2. Then 8 train and 2 eval episode files of 1000 steps
-   (generator format, compressible frames) written with the port's
-   repository; the npz reader in use and one file's decode time; six
-   prefetched batches held against their numpy sources on the card. Then
-   ``trainer.run`` (``data_workers: 4``, 12 steps, step 1 a log step,
-   checkpoints at 6 and 12, the eval protocol at 6), counts set to 0 just
-   before and read just after: K1's launches by rows must match the train
-   steps, the log step's rollout and the eval calls, none ``generic``;
-   finite ``train/`` losses, ``test/`` and ``eval/`` rows with open-loop
-   metrics, npz dumps, a checkpoint at 12. Then a resume to 18: the weights
-   and optimizer state at its first step equal the checkpoint bit for bit,
-   and it takes steps 13-18 (90 ``wide`` launches at M=1536). Reports the
-   loop's ms/step (steps 9-12, from ``train/fps``) beside phase 4's bare
-   step, ``timer_*``, peak host RSS and peak device memory.
-12. The actors at the flagship width (action_dim 4, ``Grid-8x64``, the one
-   image env that needs no SDK). K1 ``skinny`` at M=1 and M=8 (H=1024)
-   against its plain version, timed as in 2. Then ``generator.main`` on the
-   card with the network policy from a checkpoint of a seeded model, at B=1
-   and B=8 (``envs_per_worker``): counts set to 0 just before and read just
-   after each run, one ``skinny`` launch per acting call and none other; at
-   least two episode files each, read back through the repository and
-   ``SequentialDataset`` with the JAX generator's keys, shapes and policy
-   columns; host microseconds per env step. Then ``python -m
-   pydreamer_tpu_torch.launch --configs defaults atari`` (two CPU
-   generators, the learner on the card, 80 steps) under ``timeout`` in a
-   session of its own: exit 0, no process of that session left, episodes
-   from both generators, each generator loading the learner's checkpoint,
-   finite ``train/`` losses, a checkpoint at step 80, and the learner's own
-   log line of K1 launches (48 ``skinny`` + 15 ``wide`` a step plus the log
-   step's 47, none ``generic``); the loop's ms/step beside phase 11's and
-   the CPU generators' ``agent/fps``.
-13. The probes and the baseline world models at the MiniWorld width
-   (``--configs defaults miniworld --goals_size 4 --probe_model map+goals``
-   through the port's ``parse_args``: deter 2048, 64x64x3 images with the
-   reward planes, cnn_depth 32, a 9x9x14 map, 3 actions; T=48, B=32, bf16)
-   on synthetic batches with the probes' targets. 13a: Dreamer with
-   ``gru_layernorm_dv2``, three TrainStep calls, then a counted one (48
-   ``skinny`` + 15 ``wide``, none ``generic``), an eval-style call with
-   ``do_image_pred`` (48 + 15 more); a profiled step (busy time); finite
-   probe metrics, the probe's weights moved, and the probe's loss alone
-   gives the world model no gradient. 13b: ``vae``, ``gru_vae``,
-   ``transformer_vae`` and ``gru_probe`` (under ``probe_gradients``), three
-   TrainStep calls each with the TBTT state carried and a profiled fourth,
-   finite losses and both gradient norms, no K1 launch, the median ms per
-   step and the busy time; for the two GRU models a step from the
-   carried state differs from one from zeros on the streams that go on, and
-   only there. 13c: ``gru_vae`` at ``iwae_samples: 3`` for one step.
-14. The learner on a mesh of ranks (``parallel/``). 14a: ``trainer.run`` on
-   the flagship model from phase 11's files (``data_workers: 1``, 8 steps,
-   step 1 a log step, a checkpoint at 8) at world size 1 under the production
-   backend ``cpu:gloo,cuda:nccl``, then the same 8 steps with no group: the
-   ``train/`` losses and the final weights agree (cuDNN held deterministic;
-   bit for bit is reported, within 1e-4 relative / 1e-3 absolute is
-   required), K1's launches by rows match the steps. 14b: K1 ``skinny`` at
-   M=16 and ``wide`` at M=768 (the data ranks' shapes) against its plain
-   version, timed as in 2; then two ranks on the one card over gloo (NCCL
-   refuses two ranks on one device), ``mesh_data: 2``, each stepping on
-   B=16 of one B=32 batch from the same weights with its rows of the global
-   noise: 3 bf16 steps against one process at B=32 (step 1, from the same
-   weights: every world-model loss and ``grad_norm`` within 2e-2 relative;
-   steps 2-3: ``loss_model`` and ``loss_image`` within 2e-2, the rest
-   reported, see ``WM_TOTALS``), 3 float32 steps (TF32 off) with every
-   world-model metric within 1e-4 at every step, and per rank per step 48
-   ``skinny`` [M=16] and 15 ``wide`` [M=768] launches in bf16, 48
-   ``skinny_f32`` [M=16] and 15 ``wide_f32`` [M=768] in float32, none
-   ``generic`` or ``f32``. The float32 reference (one process, B=32) takes
-   48 ``skinny_f32`` + 15 ``wide_f32`` a step; its step is then timed in
-   turns against the same step with K1 put on the FFMA schedule ``f32``
-   (``f32_step_ab``). K1 ``skinny_f32`` / ``wide_f32`` at M=16 / M=768 are
-   held and timed beside the bf16 rows. 14c: ``mesh_model: 2``, ``tp_min_size: 1024``
-   on two ranks: the sharded parameters listed, each rank's parameter and
-   AdamW bytes smaller by half of the sharded bytes, 3 steps against one
-   process as in 14b, K1 at M=32 / M=1536 on the gathered gate kernels. The
-   ranks' ms per step are printed beside phase 4's: two ranks share one card
-   and one host, so they are no multi-GPU number.
-
-15. Learning on the card. 15a: K1 at the shapes no earlier phase launched,
-   against its plain version and timed as in 2: ``skinny_f32`` at each
-   canary's posterior (M=B) and acting (M=1) rows, ``wide_f32`` at its dream
-   (M=T*B) rows (H=32 and 64), and
-   ``skinny`` M=32 and ``wide`` M=1536 at the ``gridworld`` preset's In=H=256
-   in bf16. 15b: the four learning canaries of ``tests/test_learning.py``
-   (``pydreamer_tpu_torch/scripts/canaries.py``) on the card with
-   ``gru_type: gru_layernorm_dv2``, each held to the JAX test's own gate
-   (bandit: after > 6 and after > before + 2; GridWorld world model:
-   ``loss_model`` at step 60 under half of step 5's; pixel policy: the rolling
-   80-episode gate clears by step 4000; point: after > before + 4 and after >
-   12), counts set to 0 just before and read just after each: T posterior
-   launches a train step on ``skinny_f32``, H dream launches on ``wide_f32``
-   and one ``skinny_f32`` launch a policy call, exact per schedule. 15c: ``python
-   -m pydreamer_tpu_torch.launch --configs defaults gridworld --gru_type
-   gru_layernorm_dv2`` (deter 256, T=48, B=32, bf16, ``Grid-8x64``, one CPU
-   generator reloading the checkpoint every 15 s) for 480 steps under
-   ``timeout`` in a session of its own, started before 15a and running beside
-   15a and 15b (its own processes; its log goes to a file): exit 0, no process
-   left,
-   ``loss_model`` at the last log step under half its first logged value, the
-   generator's ``agent/`` rows both before and after its first checkpoint
-   load, the learner's K1 line (48 ``skinny`` [M=32] + 10 ``wide`` [M=1536] a
-   step plus the log step's 47, none ``generic``). Then the run tools on its
-   directory, as ``python -m pydreamer_tpu_torch.scripts.<tool>``:
-   ``export_metrics`` (a CSV whose first column is ``_step``), ``plot_curves``
-   (a PNG) where matplotlib is installed and ``make_gif`` (a GIF of the run's
-   ``d2_wm_dream`` dump) where PIL is; what a tool would read is kept in
-   ``chiprun_out/live_run/`` beside what they wrote. ``--learning-only`` runs
-   phases 1 and 15 alone.
-16. The measurement tools of ``pydreamer_tpu_torch/scripts/``, each ``main``
-   run in-process on the card at the flagship width with short counts (2
-   warm-up steps, windows of 1-5): ``bench`` (``gru``), ``bench_gru`` (three
-   cells), ``bench_step_ab`` (``gru`` against ``gru_layernorm_dv2`` in turns),
-   ``profile_step`` under ``gru_layernorm_dv2``, ``bench_dream`` (both cells at
-   M=1536), ``roofline`` at the card's peaks, ``bench_conv --all``,
-   ``scaling_bench`` (one NCCL rank a card).
-   Each line must carry the JAX tool's keys, finite values and the card's
-   name and nvidia-smi line; K1's launches in each tool are set to 0 before
-   it and read after, T ``skinny`` [M=B] a DV2 train step and H ``wide``
-   [M=T*B] a DV2 train step or dream call, exact; ``bench_gru`` reports 48
-   + 15 a step under both DV2 cells and none under ``gru``; ``profile_step``
-   saw kernel records of both schedules; ``roofline``'s K1 bound equals
-   phase 2's. One ``[16] tools summary`` line; details in
-   ``chiprun_out/tools_phase.json``. ``--tools-only`` runs phase 1, phase
-   2's two flagship rows and phase 16 with ``bench_e2e --quick`` (six CPU
-   generator processes: 139 s on an H100's host) and ``scaling_bench
-   --gspmd-overhead`` (a second rank process) as well; the default run has
-   no room for them.
-17. The train step replayed from CUDA graphs against the eager step, at the
-   ``atari_dv2`` and ``dmc_dv2`` widths (the flagship and DMC configs above):
-   two models from the same weights, one ``TrainStep`` as it runs (graphs)
-   and one held eager, the same six batches and ``(seed, step)``. The graphed
-   run warms at step 1, captures at step 2 and replays from then on, but for
-   an eager log step (``do_image_pred``) at step 4, which the eager run takes
-   too. Per step the losses, the four gradient norms, the out-state and every
-   parameter are held to the eager run's (``GRAPH_RTOL``, ``GRAPH_ATOL``; the
-   largest differences are printed); each call, replayed or eager, counts
-   K1's backward calls of a step, all on the bf16 pass (T at M=B, and H at
-   M=T*B under ``actor_grad: dynamics``); one capture; no returned tensor shares
-   storage with another step's; a profiled replay shows K1's kernels, T
-   ``skinny`` and H ``wide`` launches credited, and device busy time within
-   ``GRAPH_BUSY_RTOL`` of a profiled eager step's. Prints the capture's
-   seconds, the segments, the host launch calls a step, ms a step either
-   way, the peak memory and the phase's seconds. ``--graph-only`` runs
-   phases 1 and 17.
-18. K1 at DreamerV3 XL's shapes (In=1024, H=4096, bf16): ``skinny`` at M=16
-   (the posterior loop) and ``wide`` at M=1024 (the dream) against the
-   plain version, forward and six gradients, timed as in 2; then ms of a
-   forward and backward (K1's bf16 backward pass) through K1's autograd
-   function at both shapes beside the same through the plain version; then
-   ``bench_gru --cells dv3``, the tool's lines at the same two shapes.
-19. The DreamerV3 XL step (``--configs defaults atari dreamerv3_xl``, read
-   by the port's ``build_conf``) replayed from CUDA graphs against the eager
-   step, as 17 does at the DreamerV2 widths, with the return statistics
-   (``ac.retnorm.stats``) and the slow critic (``ac.critic_target``) held
-   too: the device state that each replay must update in place. Every batch
-   starts with a reset, so the learned initial state enters each step.
-   19b: ``trainer.run`` on the same preset from episode files written from
-   a seed (60 steps): ``make_model`` builds DreamerV3 XL, step 1 is a log
-   step, step 2 captures, the rest replay (at least 97% of the calls), K1
-   launches 64 ``skinny`` (M=16) and 15 ``wide`` (M=1024) a step, plus the
-   log step's 63-step dream at M=16 (these counts are the kernels line's
-   for the two DreamerV3 XL rows), 64 K1 backward calls a step at M=16, all
-   on the bf16 pass, and the checkpoint lands at step 60.
-   ``--dv3-only`` runs phases 1, 18, 19 and 19b.
-20. K1's backward, the bf16 pass (``ops/gru_dv2.py::k1_backward``: the
-   forward's gate products recomputed, the LayerNorm/gate backward kernel,
-   three bf16 products with f32 sums), at the posterior loop's and the
-   dream's shapes: M=32 and M=1536 at H=1024 and H=2048 (In=1000), M=16 and
-   M=1024 at In=1024, H=4096; all six gradients, and at M > 64 also x and h
-   alone (the dream under ``actor_grad: dynamics``). Each gradient is held
-   to autograd through the plain version in float32 (the backward before
-   the bf16 pass) within ``BWD_WITNESS_FACTOR`` times the witness's
-   distance from it (``backward_witness``: the same float32 arithmetic with
-   dG rounded to bf16, the pass's one new rounding), or ``GRAD_TOL``, and
-   never more than ``BWD_LIMIT_CAP``. Timed
-   (CUDA graphs, cold L2) beside its bound (bytes at the card's bandwidth
-   or bf16 operations at its tensor rate) and the plain recompute's time.
-   ``--backward-only`` runs phases 1 and 20.
+Runs the phases of ``PHASES`` in order, or with a flag the phases that
+``ONLY`` lists for it. Each phase is a function whose docstring says what it
+runs and holds; any failure exits non-zero, and nothing is caught to carry
+on. Without a card it exits 1 at once; with any other argument, 2.
 
 Prints one JSON line of per-kernel numbers (``launches``: the count on the
 path that runs the shape, ``launches_per_step``: per train step or acting
-call; K1's backward has a row per shape and gradient set of phase 20, its
-calls counted in phases 4, 9 and 19b), then the nvidia-smi line, then
-as the last line ``{"ok": true, "device": {...}}``. Details go to
-``chiprun_out/chip_smoke.json``, ``chiprun_out/chip_smoke_profile.txt`` and
+call, both as the phases that ran credited them; K1's backward has a row per
+shape and gradient set of phase 20, its calls counted in phases 4, 9 and
+19b), then the nvidia-smi line, then as the last line
+``{"ok": true, "device": {...}}``. Details go to
+``chiprun_out/chip_smoke.json`` (``phase_s``: seconds by phase),
+``chiprun_out/chip_smoke_profile.txt`` (phases 5 and 9),
 ``chiprun_out/learner_metrics.jsonl`` (phase 11's metrics),
 ``chiprun_out/launch_log.txt`` and ``chiprun_out/launch_metrics.jsonl``
 (phase 12's launcher run), ``chiprun_out/probe_phase.json`` (phase 13),
-``chiprun_out/phase14_*_rank*.json`` (phase 14's ranks), ``chiprun_out/live_log.txt``
-and ``chiprun_out/live_run/`` (phase 15c);
-phase 11's episode files stay in
-``chiprun_out/learner_episodes/`` and the run directories (under ``runs/``,
-git-ignored) are removed at the end.
-This script imports nothing of JAX or of the JAX package; the flagship
-config below is its own copy.
+``chiprun_out/phase14_*_rank*.json`` (phase 14's ranks),
+``chiprun_out/live_log.txt`` and ``chiprun_out/live_run/`` (phase 15c),
+``chiprun_out/tools_phase.json`` (phase 16) and
+``chiprun_out/k1_backward_phase.json`` (phase 20); phase 11's episode files
+stay in ``chiprun_out/learner_episodes/`` and the run directories (under
+``runs/``, git-ignored) are removed at the end.
+This script imports nothing of JAX or of the JAX package; its presets are
+``config/*.yaml`` as the port's ``build_conf`` reads them.
 """
 
 from __future__ import annotations
@@ -264,40 +38,47 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
+import torch
+
+from pydreamer_tpu_torch.conf import Conf, build_conf, parse_args
+from pydreamer_tpu_torch.models.dreamer import Dreamer
+from pydreamer_tpu_torch.models.modules import layer_norm
+from pydreamer_tpu_torch.models.noise import GeneratorNoise
+from pydreamer_tpu_torch.ops import gru_dv2 as k1
 from pydreamer_tpu_torch.scripts.profile_step import profile_step
 from pydreamer_tpu_torch.scripts.roofline import k1_bound_ms, peaks_for
+from pydreamer_tpu_torch.training.train_step import TrainStep
 
-OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
+ROOT = Path(__file__).resolve().parent
+OUT_DIR = ROOT / "chiprun_out"
+DV2 = "gru_layernorm_dv2"
 
-# Flagship Dreamer/Atari config (config/defaults.yaml `defaults` + `atari`),
-# with the DreamerV2 late-reset GRU cell so the train step runs kernel K1.
-FLAGSHIP = dict(
-    image_key="image", image_size=64, image_channels=3, image_categorical=False,
-    action_dim=18, clip_rewards="tanh", vecobs_size=0,
-    map_key=None, map_size=0, map_channels=0, map_categorical=True, goals_size=0,
-    model="dreamer", deter_dim=1024, stoch_dim=32, stoch_discrete=32, hidden_dim=1000,
-    gru_layers=1, gru_type="gru_layernorm_dv2", layer_norm=True,
-    image_encoder="cnn", cnn_depth=48, image_encoder_layers=0,
-    image_decoder="cnn", image_decoder_layers=0, image_decoder_min_prob=0.0,
-    reward_input=False, reward_decoder_layers=4,
-    reward_decoder_categorical=None, terminal_decoder_layers=4,
-    probe_model="none", probe_gradients=False,
-    iwae_samples=1, kl_balance=0.8, kl_weight=0.1,
-    image_weight=1.0, vecobs_weight=1.0, reward_weight=1.0, terminal_weight=1.0,
-    adam_lr=3e-4, adam_lr_actor=1e-4, adam_lr_critic=1e-4, adam_eps=1e-5,
-    keep_state=True, batch_length=48, batch_size=32,
-    grad_clip=200.0, grad_clip_ac=200.0, precision="bfloat16",
-    gamma=0.99, lambda_gae=0.95, entropy=1e-3, target_interval=100,
-    imag_horizon=15, actor_grad="reinforce", actor_dist="onehot",
-    aux_critic=False, aux_critic_weight=1.0, gamma_aux=0.99,
-    lambda_gae_aux=0.95, target_interval_aux=1000,
-)
 
-# `defaults` + `dmc` (config/defaults.yaml): the defaults' width (deter 2048,
-# kl_weight 1.0, gamma 0.995) with the DMC policy: 12 continuous actions, the
-# dynamics gradient through the dream, the truncated-normal head.
-DMC = dict(FLAGSHIP, deter_dim=2048, action_dim=12, kl_weight=1.0, gamma=0.995, entropy=1e-4,
-           actor_grad="dynamics", actor_dist="trunc_normal")
+def preset(*names: str, **overrides) -> dict:
+    """``--configs defaults <names>`` as the port reads ``config/*.yaml``,
+    with ``overrides``."""
+    return dict(build_conf(str(ROOT / "config"), ["defaults", *names]), **overrides)
+
+
+def flagship_conf() -> dict:
+    """Dreamer/Atari (``defaults`` + ``atari``) with the DreamerV2 late-reset
+    GRU cell, so the train step runs kernel K1: the benchmark's ``atari_dv2``."""
+    return preset("atari", gru_type=DV2)
+
+
+def dmc_conf() -> dict:
+    """``defaults`` + ``dmc`` with the K1 cell: deter 2048, 12 continuous
+    actions, the dynamics gradient through the dream, the truncated-normal
+    head. The benchmark's ``dmc_dv2``."""
+    return preset("dmc", gru_type=DV2)
+
+
+def dv3_conf() -> dict:
+    """DreamerV3 XL as the normal path reads it: ``--configs defaults atari
+    dreamerv3_xl``, the benchmark's ``atari_dv3_xl``."""
+    return preset("atari", "dreamerv3_xl")
+
 
 FWD_TOL = 2e-3      # max-abs on h' (|h'| <= ~1), bf16 operands: f32 sums in another order, amplified by LayerNorm
 FWD_TOL_F32 = 1e-4  # max-abs on h', f32 operands: both sides full f32 (TF32 off), sums in another order
@@ -316,9 +97,40 @@ GRAD_NORM_RTOL = 5e-2  # the actor's gradient norm, fused vs unfused, through th
 K1_SOURCE = "pydreamer_tpu_torch/ops/csrc/gru_dv2.cu"
 K1_REPLACES = "pydreamer_tpu/ops/gru_pallas.py:78"
 K1_BWD_REPLACES = "pydreamer_tpu/ops/gru_pallas.py:114"  # JAX's _bwd: the recompute in plain XLA
+TIMED_STEPS = 5  # train steps a timed window in phases 4, 6 and 9
 
 
-def time_ms(torch, fn, iters: int, flush=None) -> float:
+class RunState:
+    """What the phases share: the card (its name, nvidia-smi line and peaks,
+    set by phase 1), the device and one generator for every random input,
+    the flagship conf, ``report`` (``chiprun_out/chip_smoke.json``), ``path``
+    (K1's launches on the paths that ran, by shape, with the train steps or
+    calls that made them) and ``held`` (the models and batches a phase hands
+    to the next: 3 to 6, 8 to 10)."""
+
+    def __init__(self):
+        self.device = torch.device("cuda:0")
+        self.gen = torch.Generator(device=self.device).manual_seed(0)
+        self.conf = Conf(flagship_conf())
+        self.smi = self.name = self.peaks = None
+        self.report = {"k1": []}
+        self.path = {}
+        self.held = {}
+
+    def credit(self, schedule: str, M: int, H: int, launches: int, calls: int) -> None:
+        """Add ``launches`` of K1's ``schedule`` at M rows and width H, made by
+        ``calls`` train steps or acting calls, to the kernels line's row."""
+        n, c = self.path.get((schedule, M, H), (0, 0))
+        self.path[(schedule, M, H)] = (n + launches, c + calls)
+
+    def k1_row(self, where: str, M: int, In: int, H: int, dtype, want: str) -> None:
+        """One timed ``check_k1`` row: kept for the kernels line, printed."""
+        res = check_k1(self, M, In, H, dtype, want, timed=True)
+        self.report["k1"].append(res)
+        print(f"{where}: {k1_summary(res)}")
+
+
+def time_ms(fn, iters: int, flush=None) -> float:
     """Device time per call: ``iters`` calls captured in one CUDA graph, so the
     host's launch cost does not enter; the median of 3 replays. With
     ``flush``, each call follows a flush of the L2 and the flushes' own time
@@ -351,7 +163,7 @@ def time_ms(torch, fn, iters: int, flush=None) -> float:
     return graph_ms(lambda: (flush(), fn())) - graph_ms(flush)
 
 
-def call_us(torch, fn, n: int = 200) -> float:
+def call_us(fn, n: int = 200) -> float:
     """Host-clock microseconds per call over ``n`` back-to-back eager calls
     (then one synchronize): the launch path's host cost where it exceeds the
     device time, as it does inside the host-bound train step."""
@@ -364,7 +176,7 @@ def call_us(torch, fn, n: int = 200) -> float:
     return (time.perf_counter() - t0) / n * 1e6
 
 
-def k1_inputs(torch, M, In, H, gen, device, dtype):
+def k1_inputs(M, In, H, gen, device, dtype):
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=device)
     return (randn(M, In).to(dtype), torch.tanh(randn(M, H)).to(dtype),
@@ -372,20 +184,24 @@ def k1_inputs(torch, M, In, H, gen, device, dtype):
             1.0 + 0.1 * randn(3 * H), 0.1 * randn(3 * H))
 
 
-def unfused_cell(torch, layer_norm):
+def unfused_cell(x, h, w_ih, w_hh, scale, bias):
     """The composition NormGRUCellLateReset.forward runs, on operands already
     in its compute dtype: two products, LayerNorm in f32, the gate ops."""
-    def cell(x, h, w_ih, w_hh, scale, bias):
-        dt = x.dtype
-        gates = layer_norm(x @ w_ih + h @ w_hh, scale, bias, dt)
-        r, u, n = gates.chunk(3, -1)
-        update = torch.sigmoid(u - 1.0)
-        return update * torch.tanh(torch.sigmoid(r) * n) + (1.0 - update) * h
-    return cell
+    gates = layer_norm(x @ w_ih + h @ w_hh, scale, bias, x.dtype)
+    r, u, n = gates.chunk(3, -1)
+    update = torch.sigmoid(u - 1.0)
+    return update * torch.tanh(torch.sigmoid(r) * n) + (1.0 - update) * h
 
 
-def check_k1(torch, k1, M, In, H, dtype, want, gen, device, timed: bool, peaks, unfused=None):
-    ins = k1_inputs(torch, M, In, H, gen, device, dtype)
+def dtype_name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def check_k1(rs: RunState, M, In, H, dtype, want, timed: bool) -> dict:
+    """K1 at one shape against its plain version, forward and six gradients;
+    ``timed``: its times beside the yardsticks and its bound."""
+    gen, device = rs.gen, rs.device
+    ins = k1_inputs(M, In, H, gen, device, dtype)
     got = k1.plan(M, In, H, dtype).schedule
     if got != want:
         raise AssertionError(f"K1 M={M} In={In} H={H} {dtype}: schedule {got}, expected {want}")
@@ -402,7 +218,7 @@ def check_k1(torch, k1, M, In, H, dtype, want, gen, device, timed: bool, peaks, 
     (k1.GRUDv2Function.apply(*leaves_k) * proj).sum().backward()
     leaves_p = [t.clone().requires_grad_() for t in ins]
     (k1.gru_dv2_reference(*leaves_p) * proj).sum().backward()
-    witness = backward_witness(torch, k1, ins, proj) if dtype == torch.bfloat16 else None
+    witness = backward_witness(ins, proj) if dtype == torch.bfloat16 else None
     grad_errs = {}
     for i, (name, a, b) in enumerate(zip(GRAD_NAMES, leaves_k, leaves_p)):
         err = rel_err(a.grad, b.grad)
@@ -410,31 +226,31 @@ def check_k1(torch, k1, M, In, H, dtype, want, gen, device, timed: bool, peaks, 
         limit = GRAD_TOL if witness is None else bwd_limit(rel_err(witness[i], b.grad))
         if not math.isfinite(err) or err > limit:
             raise AssertionError(f"K1 {got} M={M}: grad {name} rel err {err} > {limit}")
-    result = dict(schedule=got, M=M, In=In, H=H, dtype=str(dtype).replace("torch.", ""),
+    result = dict(schedule=got, M=M, In=In, H=H, dtype=dtype_name(dtype),
                   max_abs_err=fwd_err, tol=tol, grad_rel_err=grad_errs)
     if timed:
         flush_buf = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device=device)  # 128 MB > L2
         flush = flush_buf.zero_
         iters = 50
         xh, w = torch.cat(ins[:2], 1), torch.cat(ins[2:4], 0)
-        result["ms"] = time_ms(torch, lambda: k1.gru_dv2_cuda(*ins), iters, flush)
-        result["ms_l2_warm"] = time_ms(torch, lambda: k1.gru_dv2_cuda(*ins), iters)
-        result["plain_ms"] = time_ms(torch, lambda: k1.gru_dv2_reference(*ins), iters, flush)
-        result["gemm_library_ms"] = time_ms(torch, lambda: torch.mm(xh, w), iters, flush)
-        result["unfused_ms"] = time_ms(torch, lambda: unfused(*ins), iters, flush)
-        result["call_us"] = call_us(torch, lambda: k1.gru_dv2_cuda(*ins))
-        result["unfused_call_us"] = call_us(torch, lambda: unfused(*ins))
+        result["ms"] = time_ms(lambda: k1.gru_dv2_cuda(*ins), iters, flush)
+        result["ms_l2_warm"] = time_ms(lambda: k1.gru_dv2_cuda(*ins), iters)
+        result["plain_ms"] = time_ms(lambda: k1.gru_dv2_reference(*ins), iters, flush)
+        result["gemm_library_ms"] = time_ms(lambda: torch.mm(xh, w), iters, flush)
+        result["unfused_ms"] = time_ms(lambda: unfused_cell(*ins), iters, flush)
+        result["call_us"] = call_us(lambda: k1.gru_dv2_cuda(*ins))
+        result["unfused_call_us"] = call_us(lambda: unfused_cell(*ins))
         if H == 1024:  # the dtype's first design at the same shape, as generic_ms / f32_ffma_ms
             sched, key = ("generic", "generic") if dtype == torch.bfloat16 else ("f32", "f32_ffma")
             first = k1.Plan(sched, workspace=M * 3 * H)
-            result[f"{key}_ms"] = time_ms(torch, lambda: k1._launch(first, *ins), iters, flush)
+            result[f"{key}_ms"] = time_ms(lambda: k1._launch(first, *ins), iters, flush)
             out_f = k1._launch(first, *ins)
             torch.cuda.synchronize()
             result[f"{key}_max_abs_err"] = err = (out_f - out_p).abs().max().item()
             if not math.isfinite(err) or err > tol:
                 raise AssertionError(f"K1 {sched} M={M} H={H}: forward max-abs err {err} > {tol}")
         result["bound_ms"], result["bound_by"], result["bound_route"] = k1_bound_ms(
-            M, In, H, peaks, dtype == torch.bfloat16)
+            M, In, H, rs.peaks, dtype == torch.bfloat16)
         result["bound_share"] = result["bound_ms"] / result["ms"]
     return result
 
@@ -461,7 +277,7 @@ def k1_backward_rows(T: int, B: int, H_imag: int, dynamics: bool, steps: int = 1
     return {B: steps * T, **({T * B: steps * H_imag} if dynamics else {})}
 
 
-def check_k1_backwards(k1, report, where: str, want: dict, H: int, steps: int,
+def check_k1_backwards(report, where: str, want: dict, H: int, steps: int,
                        credit: bool = True) -> None:
     """The K1 backward calls counted since ``K1_BACKWARDS.reset()`` on a
     main-path run: ``want`` by rows, every one on the bf16 pass (route
@@ -480,7 +296,7 @@ def check_k1_backwards(k1, report, where: str, want: dict, H: int, steps: int,
             path[f"M={M},H={H}"] = (launches + n, n_steps + steps)
 
 
-def backward_witness(torch, k1, ins, grad_out, needs=(True,) * 6) -> list:
+def backward_witness(ins, grad_out, needs=(True,) * 6) -> list:
     """The bf16 witness of K1's backward: the float32 recompute's arithmetic
     (f32 copies of the operands, the plain LayerNorm/gate backward) with the
     bf16 pass's one new rounding, dG to bf16, before three f32 products; each
@@ -506,7 +322,7 @@ def k1_summary(res) -> str:
             f"ms; host {res['call_us']:.1f} us/call (unfused {res['unfused_call_us']:.1f})")
 
 
-def timed_steps(torch, ts, obs, state, step: int, n: int):
+def timed_steps(ts, obs, state, step: int, n: int):
     """Run n TrainStep calls from ``step + 1``; host-clock ms per step, synchronized."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -516,7 +332,7 @@ def timed_steps(torch, ts, obs, state, step: int, n: int):
     return (time.perf_counter() - t0) / n * 1e3, state, metrics
 
 
-def make_obs(torch, conf, gen, device, T=None, B=None):
+def make_obs(conf, gen, device, T=None, B=None):
     T, B, A = T or conf.batch_length, B or conf.batch_size, conf.action_dim
     reset = torch.zeros(T, B, dtype=torch.bool, device=device)
     reset[0] = True
@@ -557,9 +373,375 @@ def unfused_state_dict(sd):
              .replace("cell_0.ln_bias", "cell_0.lnorm.bias"): v for k, v in sd.items()}
 
 
-def actor_grad_norm(torch, model):
+def actor_grad_norm(model):
     return torch.sqrt(sum(p.grad.float().square().sum() for p in model.ac.actor.parameters()
                           if p.grad is not None)).item()
+
+
+def build_phase(rs: RunState) -> None:
+    """1. Build kernel K1 (``ops/csrc/gru_dv2.cu``, nvcc for sm_90a) and print
+    the card's name and power limit as nvidia-smi reports them."""
+    report = rs.report
+    t0 = time.time()
+    lib_path = k1.build()
+    report["build_s"] = time.time() - t0
+    ptxas = [ln for ln in lib_path.with_suffix(".log").read_text().splitlines()
+             if "registers" in ln or "spill" in ln or "smem" in ln]
+    print(f"[1] built {lib_path.name} in {report['build_s']:.1f} s", *ptxas, sep="\n    ")
+    rs.smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                            capture_output=True, text=True,
+                            check=True).stdout.strip().splitlines()[0]
+    rs.name = torch.cuda.get_device_name(0)
+    peak_key, rs.peaks = peaks_for(rs.name)
+    report.update(card=rs.name, nvidia_smi=rs.smi, peaks_of=peak_key, torch=torch.__version__,
+                  cuda=torch.version.cuda)
+    print(f"    card {rs.smi}; torch {torch.__version__} cuda {torch.version.cuda}")
+
+
+def schedules_phase(rs: RunState, flagship_only: bool = False) -> None:
+    """2. Hold every K1 schedule against its plain PyTorch version: forward
+    max-abs error and the gradients of all six inputs (float32: the same plain
+    recompute, within ``GRAD_TOL``; bf16: K1's bf16 backward pass, within
+    ``BWD_WITNESS_FACTOR`` times what rounding dG to bf16 alone costs, at most
+    ``BWD_LIMIT_CAP``, as phase 20). ``skinny`` and ``wide`` at the two
+    main-path shapes (M=32 and M=1536 rows, In=1000, H=1024, bf16) and at
+    H=2048 (the ``defaults`` width), ``skinny_f32`` and ``wide_f32`` at the
+    same four shapes in float32 (3xTF32 on the tensor cores, held to the f32
+    tolerance with TF32 off in the plain version), ``generic`` and ``f32`` at
+    small ragged shapes. Time each (CUDA graphs of many launches, cold and
+    warm L2) beside its bound (for f32 operands the faster of FFMA and 3xTF32,
+    the route named), the plain version, the cuBLAS product of the
+    concatenated operands (``gemm_library_ms``), the unfused composition the
+    ``gru_layernorm_dv2_xla`` cell runs (``unfused_ms``), and, at H=1024, the
+    first design of the dtype at the same shape: ``generic`` (the first,
+    unpipelined bf16 design) or ``f32`` (the FFMA design, ``f32_ffma_ms``),
+    each held to the same tolerance. The port calls none of these
+    yardsticks. Then the fused cell under ``precision: float32`` on the card:
+    it must take ``skinny_f32``. ``flagship_only``: the two flagship rows
+    alone."""
+    from pydreamer_tpu_torch.models.rnn import make_gru_cell
+
+    conf, gen, device = rs.conf, rs.gen, rs.device
+    T, B, In, H = conf.batch_length, conf.batch_size, conf.hidden_dim, conf.deter_dim
+    bf16, f32 = torch.bfloat16, torch.float32
+    rows = ((B, H, bf16, "skinny"), (T * B, H, bf16, "wide"),
+            (B, 2048, bf16, "skinny"), (T * B, 2048, bf16, "wide"),
+            (B, H, f32, "skinny_f32"), (T * B, H, f32, "wide_f32"),
+            (B, 2048, f32, "skinny_f32"), (T * B, 2048, f32, "wide_f32"))
+    for M, H_s, dtype, want in rows[:2] if flagship_only else rows:
+        rs.k1_row(f"[2] K1 {want} M={M} H={H_s} {dtype_name(dtype)}", M, In, H_s, dtype, want)
+    if flagship_only:
+        return
+    for M, In_s, H_s, dtype, want in ((5, 37, 50, bf16, "generic"), (70, 129, 67, bf16, "generic"),
+                                      (1, 8, 16, bf16, "generic"), (5, 37, 50, f32, "f32"),
+                                      (70, 129, 67, f32, "f32")):
+        res = check_k1(rs, M, In_s, H_s, dtype, want, timed=False)
+        print(f"[2] K1 {want} M={M} In={In_s} H={H_s} {res['dtype']}: max_abs_err "
+              f"{res['max_abs_err']:.3e}, grads ok")
+    # The fused cell under precision: float32 runs K1's skinny_f32 schedule at M=B.
+    cell = make_gru_cell(DV2, In, H, dtype=f32).to(device)
+    x32, h32 = k1_inputs(B, In, H, gen, device, f32)[:2]
+    k1.LAUNCHES.reset()
+    with torch.no_grad():
+        out32 = cell(x32, h32)
+        ref32 = k1.gru_dv2_reference(x32, h32, cell.weight_ih, cell.weight_hh, cell.ln_scale,
+                                     cell.ln_bias)
+    err32 = (out32 - ref32).abs().max().item()
+    rs.report["f32_cell"] = dict(max_abs_err=err32, launches=dict(k1.LAUNCHES.by_schedule))
+    print(f"[2] gru_layernorm_dv2 cell in float32: {k1.LAUNCHES.by_schedule}, max_abs_err {err32:.3e}")
+    if (out32.dtype != f32 or k1.LAUNCHES.by_schedule != {"skinny_f32": 1}
+            or not err32 <= FWD_TOL_F32):
+        raise AssertionError(f"float32 cell: {out32.dtype}, {k1.LAUNCHES.by_schedule}, err {err32}")
+
+
+def fused_forward_phase(rs: RunState) -> None:
+    """3. Check the train step's forward at full width with the K1 cell
+    against the unfused ``gru_layernorm_dv2_xla`` cell (same weights, same
+    noise). Hands both models and the batch to phases 4-6."""
+    conf, device = rs.conf, rs.device
+    B = conf.batch_size
+    torch.manual_seed(0)
+    model = Dreamer(conf, device=device)
+    obs = make_obs(conf, rs.gen, device)
+    xla = Dreamer(conf.replace(gru_type="gru_layernorm_dv2_xla"), device=device)
+    xla.load_state_dict(unfused_state_dict(model.state_dict()))
+    with torch.no_grad():
+        lf, *_ = model.training_step(obs, model.init_state(B), GeneratorNoise(device, seed=7))
+        lx, *_ = xla.training_step(obs, xla.init_state(B), GeneratorNoise(device, seed=7))
+    cmp = {k: (lf[k].item(), lx[k].item()) for k in lf}
+    rs.report["fused_vs_unfused"] = cmp
+    print("[3] fused vs unfused losses:", {k: f"{a:.5f}/{b:.5f}" for k, (a, b) in cmp.items()})
+    rel = abs(cmp["loss_model"][0] - cmp["loss_model"][1]) / abs(cmp["loss_model"][1])
+    if not rel <= LOSS_RTOL:
+        raise AssertionError(f"fused vs unfused loss_model rel diff {rel} > {LOSS_RTOL}")
+    rs.held = dict(model=model, xla=xla, obs=obs)
+
+
+def train_step_phase(rs: RunState) -> None:
+    """4. Drive the main path: the flagship Dreamer/Atari train step (T=48,
+    B=32, deter 1024, stoch 32x32, hidden 1000, cnn_depth 48, H=15, bf16
+    compute, uint8 images, gru_type gru_layernorm_dv2) from random weights
+    made from a seed: 2 warm-up and 5 timed TrainStep calls. The K1 launch
+    counter is set to 0 just before and read just after: T launches a step
+    must have taken ``skinny`` and H ``wide``, none ``generic``; so is K1's
+    backward tally (``K1_BACKWARDS``): T calls a step at M=B (the dream is not
+    differentiated under ``actor_grad: reinforce``), every one on the bf16
+    pass (route ``kernel``)."""
+    conf, report, held = rs.conf, rs.report, rs.held
+    T, B, H_imag, H = conf.batch_length, conf.batch_size, conf.imag_horizon, conf.deter_dim
+    model, obs, n_steps = held["model"], held["obs"], TIMED_STEPS
+    ts = TrainStep(model, conf, device=rs.device)
+    _, state, _ = timed_steps(ts, obs, model.init_state(B), 0, 2)
+    torch.cuda.reset_peak_memory_stats()
+    k1.LAUNCHES.reset()
+    k1.K1_BACKWARDS.reset()
+    step_ms, state, metrics = timed_steps(ts, obs, state, 2, n_steps)
+    launches, by_rows = k1.LAUNCHES.count, dict(k1.LAUNCHES.by_rows)
+    by_schedule = dict(k1.LAUNCHES.by_schedule)
+    losses = {k: metrics[k].item() for k in ("loss_model", "loss_probe", "loss_actor", "loss_critic")}
+    report.update(step_ms=step_ms, launches=launches, launches_by_rows=by_rows,
+                  launches_by_schedule=by_schedule, losses=losses,
+                  metrics={k: v.item() for k, v in metrics.items()},
+                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"[4] train step: {step_ms:.2f} ms/step over {n_steps} steps, losses {losses}, "
+          f"K1 launches {launches} {by_rows} {by_schedule}, peak mem {report['peak_mem_gb']:.2f} GB")
+    if not all(math.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"non-finite losses {losses}")
+    want = n_steps * (T + H_imag)
+    if (launches != want or by_rows != {B: n_steps * T, T * B: n_steps * H_imag}
+            or by_schedule != {"skinny": n_steps * T, "wide": n_steps * H_imag}):
+        raise AssertionError(f"K1 launches {launches} {by_rows} {by_schedule}, expected {want}: "
+                             f"{n_steps * T} skinny and {n_steps * H_imag} wide")
+    check_k1_backwards(report, "4", k1_backward_rows(
+        T, B, H_imag, conf.actor_grad == "dynamics", n_steps), H, n_steps)
+    if tuple(state[0].shape) != (B, H) or not torch.isfinite(state[0]).all():
+        raise AssertionError("out_state h is not finite of shape (B, deter)")
+    rs.credit("skinny", B, H, by_schedule["skinny"], n_steps)
+    rs.credit("wide", T * B, H, by_schedule["wide"], n_steps)
+    held.update(ts=ts, state=state, step=2 + n_steps)
+
+
+def profile_phase(rs: RunState) -> None:
+    """5. Profile one more step with torch.profiler: K1's kernels, device time
+    and launches, and the device's busy time in the step."""
+    held, conf = rs.held, rs.conf
+    state, prof5, events = profile_step(held["ts"], held["obs"], held["state"], held["step"] + 1)
+    held.update(state=state, step=held["step"] + 1)
+    rs.report["profile"] = prof5
+    table = events.table(sort_by="self_device_time_total", row_limit=30)
+    print(f"[5] profiled step: wall {prof5['wall_ms']:.2f} ms, device busy "
+          f"{prof5['device_busy_ms']:.2f} ms; K1 {prof5['k1_ms']:.3f} ms in {prof5['k1_kernels']}; "
+          f"launched {prof5['launched']}, recorded {prof5['k1_launches']}")
+    check_profiled_k1(prof5, conf.batch_length, conf.imag_horizon, "[5] profiled step")
+    (OUT_DIR / "chip_smoke_profile.txt").write_text(f"{rs.smi}\n[5] flagship step\n{table}\n")
+
+
+def turns_phase(rs: RunState) -> None:
+    """6. Time the train step with the K1 cell against the unfused cell, in
+    turns (unfused, K1, K1, unfused; 5 steps per window after 2 warm-up
+    steps). Lets go of phase 3's models."""
+    held, n_steps = rs.held, TIMED_STEPS
+    ts, obs, state, step, xla = (held.pop(k) for k in ("ts", "obs", "state", "step", "xla"))
+    ts_xla = TrainStep(xla, rs.conf, device=rs.device)
+    _, state_xla, _ = timed_steps(ts_xla, obs, xla.init_state(rs.conf.batch_size), 0, 2)
+    windows = {"unfused": [], "k1": []}
+    for variant in ("unfused", "k1", "k1", "unfused"):
+        if variant == "k1":
+            ms, state, _ = timed_steps(ts, obs, state, step, n_steps)
+            step += n_steps
+        else:
+            ms, state_xla, _ = timed_steps(ts_xla, obs, state_xla, 2 + len(windows["unfused"]) * n_steps, n_steps)
+        windows[variant].append(ms)
+    rs.report["step_ms_ab"] = windows
+    print(f"[6] ms/step in turns: K1 cell {windows['k1']}, unfused cell {windows['unfused']}")
+    del xla, ts, ts_xla, state, state_xla, obs
+    held.clear()
+    torch.cuda.empty_cache()
+
+
+def acting_shapes_phase(rs: RunState) -> None:
+    """7. Inference shapes: hold ``skinny`` at M=1 and M=8 (In=1000, H=2048,
+    bf16) against its plain version, forward and six gradients, timed as in 2."""
+    for M in (1, 8):
+        rs.k1_row(f"[7] K1 skinny M={M} H=2048", M, rs.conf.hidden_dim, 2048, torch.bfloat16,
+                  "skinny")
+
+
+def dmc_fused_phase(rs: RunState) -> None:
+    """8. The DMC path (``dmc_conf``: deter 2048, action_dim 12, ``actor_grad:
+    dynamics``, ``actor_dist: trunc_normal``): one forward and backward with
+    the K1 cell and with the unfused cell from the same weights and noise;
+    the four losses and the actor's gradient norm must agree. K1's backward
+    runs at M=1536, H=2048 here. Hands the K1 model and its batch to phases 9
+    and 10."""
+    device = rs.device
+    dconf = Conf(dmc_conf())
+    T, B, H_imag = dconf.batch_length, dconf.batch_size, dconf.imag_horizon
+    torch.manual_seed(1)
+    dmodel = Dreamer(dconf, device=device)
+    dxla = Dreamer(dconf.replace(gru_type="gru_layernorm_dv2_xla"), device=device)
+    dxla.load_state_dict(unfused_state_dict(dmodel.state_dict()))
+    dobs = make_obs(dconf, rs.gen, device)
+    cmp8 = {}
+    for tag, m in (("k1", dmodel), ("unfused", dxla)):
+        k1.LAUNCHES.reset()
+        losses, *_ = m.training_step(dobs, m.init_state(B), GeneratorNoise(device, seed=8))
+        sum(losses.values()).backward()
+        torch.cuda.synchronize()
+        cmp8[tag] = dict({k: v.item() for k, v in losses.items()},
+                         grad_norm_actor=actor_grad_norm(m),
+                         launches=dict(k1.LAUNCHES.by_schedule))
+        m.zero_grad(set_to_none=True)
+    rs.report["dmc_fused_vs_unfused"] = cmp8
+    print("[8] DMC fused vs unfused:", {k: f"{cmp8['k1'][k]:.5f}/{cmp8['unfused'][k]:.5f}"
+                                        for k in cmp8["k1"] if k != "launches"},
+          "K1 launches", cmp8["k1"]["launches"])
+    if cmp8["k1"]["launches"] != {"skinny": T, "wide": H_imag} or cmp8["unfused"]["launches"]:
+        raise AssertionError(f"phase 8 K1 launches {cmp8['k1']['launches']} / "
+                             f"{cmp8['unfused']['launches']}, expected {T} skinny + {H_imag} wide / none")
+    for k, rtol in (("loss_model", LOSS_RTOL), ("loss_probe", LOSS_RTOL),
+                    ("loss_actor", AC_LOSS_RTOL), ("loss_critic", AC_LOSS_RTOL)):
+        a, b = cmp8["k1"][k], cmp8["unfused"][k]
+        if not abs(a - b) <= rtol * max(abs(a), abs(b)) + LOSS_ATOL:
+            raise AssertionError(f"DMC fused vs unfused {k}: {a} vs {b}")
+    a, b = cmp8["k1"]["grad_norm_actor"], cmp8["unfused"]["grad_norm_actor"]
+    if not (math.isfinite(a) and a > 0 and abs(a - b) <= GRAD_NORM_RTOL * b):
+        raise AssertionError(f"DMC fused vs unfused actor gradient norm: {a} vs {b}")
+    del m, dxla
+    torch.cuda.empty_cache()
+    rs.held = dict(conf=dconf, model=dmodel, obs=dobs)
+
+
+def dmc_step_phase(rs: RunState) -> None:
+    """9. Drive the DMC train step: 2 warm-up and 5 timed TrainStep calls,
+    counts set to 0 just before and read just after (48 ``skinny`` and 15
+    ``wide`` a step, none ``generic``; 48 K1 backward calls at M=32 and 15 at
+    M=1536 a step, all on the bf16 pass), a finite non-zero actor gradient
+    norm, and no world-model gradient from the actor loss alone. Then one log
+    step (``do_image_pred``, ``do_dream_tensors``: 48 + 47 skinny, 15 wide,
+    finite dream tensors of JAX's shapes) and one profiled step: busy time,
+    K1's kernels and the step's f32 GEMMs (K1's backward runs bf16
+    products)."""
+    report, device = rs.report, rs.device
+    dconf, dmodel, dobs = rs.held["conf"], rs.held["model"], rs.held["obs"]
+    T, B, H_imag = dconf.batch_length, dconf.batch_size, dconf.imag_horizon
+    Hd, A, n_steps = dconf.deter_dim, dconf.action_dim, TIMED_STEPS
+    dts = TrainStep(dmodel, dconf, device=device)
+    _, dstate, _ = timed_steps(dts, dobs, dmodel.init_state(B), 0, 2)
+    torch.cuda.reset_peak_memory_stats()
+    k1.LAUNCHES.reset()
+    k1.K1_BACKWARDS.reset()
+    dstep_ms, dstate, dmetrics = timed_steps(dts, dobs, dstate, 2, n_steps)
+    d_rows, d_sched = dict(k1.LAUNCHES.by_rows), dict(k1.LAUNCHES.by_schedule)
+    dstep = 2 + n_steps
+    dlosses = {k: dmetrics[k].item() for k in ("loss_model", "loss_probe", "loss_actor", "loss_critic")}
+    gna = dmetrics["grad_norm_actor"].item()
+    report["dmc"] = dict(step_ms=dstep_ms, launches_by_rows=d_rows, launches_by_schedule=d_sched,
+                         losses=dlosses, metrics={k: v.item() for k, v in dmetrics.items()},
+                         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"[9] DMC train step: {dstep_ms:.2f} ms/step over {n_steps} steps, losses {dlosses}, "
+          f"grad_norm_actor {gna:.5g}, K1 launches {d_rows} {d_sched}, "
+          f"peak mem {report['dmc']['peak_mem_gb']:.2f} GB")
+    if d_rows != {B: n_steps * T, T * B: n_steps * H_imag} or \
+            d_sched != {"skinny": n_steps * T, "wide": n_steps * H_imag}:
+        raise AssertionError(f"DMC K1 launches {d_rows} {d_sched}, expected {n_steps * T} skinny "
+                             f"[M={B}] and {n_steps * H_imag} wide [M={T * B}], no generic")
+    if not all(math.isfinite(v) for v in dlosses.values()) or not (math.isfinite(gna) and gna > 0):
+        raise AssertionError(f"DMC step: losses {dlosses}, grad_norm_actor {gna}")
+    rs.credit("skinny", B, Hd, d_sched["skinny"], n_steps)
+    rs.credit("wide", T * B, Hd, d_sched["wide"], n_steps)
+    check_k1_backwards(report, "9", k1_backward_rows(
+        T, B, H_imag, dconf.actor_grad == "dynamics", n_steps), Hd, n_steps)
+
+    # The actor loss alone reaches the actor and leaves the world model alone.
+    dmodel.zero_grad(set_to_none=True)  # TrainStep leaves its step's gradients behind
+    losses, *_ = dmodel.training_step(dobs, dstate, GeneratorNoise(device, seed=9))
+    losses["loss_actor"].backward()
+    leaked = [n for n, p in dmodel.wm.named_parameters() if p.grad is not None and p.grad.any()]
+    only_actor = actor_grad_norm(dmodel)
+    dmodel.zero_grad(set_to_none=True)
+    report["dmc"]["actor_loss_only"] = dict(wm_params_with_grad=leaked, grad_norm_actor=only_actor)
+    print(f"[9] actor loss alone: actor grad norm {only_actor:.5g}, wm parameters with a "
+          f"gradient: {leaked}")
+    if leaked or not only_actor > 0:
+        raise AssertionError(f"actor loss alone: wm gradients {leaked}, actor norm {only_actor}")
+
+    # One log step with both flags.
+    k1.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    dstate, lmetrics, _, dream = dts(dobs, dstate, dstep + 1, do_image_pred=True,
+                                     do_dream_tensors=True)
+    torch.cuda.synchronize()
+    log_ms = (time.perf_counter() - t0) * 1e3
+    dstep += 1
+    l_rows, l_sched = dict(k1.LAUNCHES.by_rows), dict(k1.LAUNCHES.by_schedule)
+    shapes = {k: tuple(v.shape) for k, v in dream.items()}
+    report["dmc"]["log_step"] = dict(ms=log_ms, launches_by_rows=l_rows, launches_by_schedule=l_sched,
+                                     dream_shapes=shapes,
+                                     logprob={k: v.item() for k, v in lmetrics.items()
+                                              if k.startswith("logprob_")})
+    print(f"[9] log step: {log_ms:.2f} ms, K1 launches {l_rows} {l_sched}, dream tensors {shapes}")
+    if l_sched != {"skinny": 2 * T - 1, "wide": H_imag} or l_rows != {B: 2 * T - 1, T * B: H_imag}:
+        raise AssertionError(f"log step K1 launches {l_rows} {l_sched}, expected {T}+{T - 1} "
+                             f"skinny and {H_imag} wide")
+    if shapes.get("image_pred") != (T, B, 64, 64, 3) or shapes.get("action_pred") != (T, B, A):
+        raise AssertionError(f"dream tensor shapes {shapes}")
+    if not all(torch.isfinite(v).all() for v in dream.values()) or \
+            not all(math.isfinite(v.item()) for v in lmetrics.values()):
+        raise AssertionError("log step: non-finite dream tensors or metrics")
+
+    # Profile one step.
+    dstate, prof9, events9 = profile_step(dts, dobs, dstate, dstep + 1)
+    report["dmc"]["profile"] = prof9
+    print(f"[9] profiled DMC step: wall {prof9['wall_ms']:.2f} ms, device busy "
+          f"{prof9['device_busy_ms']:.2f} ms; K1 {prof9['k1_ms']:.3f} ms {prof9['k1_ms_by_kernel']}; "
+          f"f32 GEMMs {prof9['f32_gemm_ms']:.3f} ms in "
+          f"{prof9['f32_gemm_calls']} calls; K1 launched {prof9['launched']}, recorded "
+          f"{prof9['k1_launches']}")
+    check_profiled_k1(prof9, T, H_imag, "[9] profiled DMC step")
+    with open(OUT_DIR / "chip_smoke_profile.txt", "a") as f:
+        f.write(f"[9] DMC step\n{events9.table(sort_by='self_device_time_total', row_limit=40)}\n")
+
+
+def inference_phase(rs: RunState) -> None:
+    """10. ``Dreamer.inference`` on the DMC model at B=1 and B=8, the
+    generators' acting step: one ``skinny`` launch a call, finite actions in
+    [-1, 1], host microseconds per call. Lets go of phase 8's model."""
+    dconf, dmodel = rs.held.pop("conf"), rs.held.pop("model")
+    Hd, A, device = dconf.deter_dim, dconf.action_dim, rs.device
+    report = rs.report["inference"] = {}
+    n_calls = 50
+    for Bi in (1, 8):
+        iobs = make_obs(dconf, rs.gen, device, T=1, B=Bi)
+        istate, inoise = dmodel.init_state(Bi), GeneratorNoise(device, seed=10)
+        for _ in range(3):
+            action, istate, imetrics = dmodel.inference(iobs, istate, inoise)
+        iobs["reset"][:] = False
+        torch.cuda.synchronize()
+        k1.LAUNCHES.reset()
+        t0 = time.perf_counter()
+        for _ in range(n_calls):
+            action, istate, imetrics = dmodel.inference(iobs, istate, inoise)
+            action_host = action.cpu()  # the generator steps its envs with it
+        call_us_i = (time.perf_counter() - t0) / n_calls * 1e6
+        i_rows, i_sched = dict(k1.LAUNCHES.by_rows), dict(k1.LAUNCHES.by_schedule)
+        report[Bi] = dict(us_per_call=call_us_i, launches_by_rows=i_rows,
+                          launches_by_schedule=i_sched,
+                          metrics={k: v.tolist() for k, v in imetrics.items()})
+        print(f"[10] inference B={Bi}: {call_us_i:.1f} us/call (host clock, action to host), "
+              f"K1 launches {i_rows} {i_sched}")
+        if i_sched != {"skinny": n_calls} or i_rows != {Bi: n_calls}:
+            raise AssertionError(f"inference B={Bi}: K1 launches {i_rows} {i_sched}, expected "
+                                 f"{n_calls} skinny [M={Bi}]")
+        if (tuple(action_host.shape) != (1, Bi, A) or not torch.isfinite(action_host).all()
+                or action_host.abs().max() > 1.0):
+            raise AssertionError(f"inference B={Bi}: action {action_host}")
+        if not all(tuple(v.shape) == (Bi,) and torch.isfinite(v).all() for v in imetrics.values()):
+            raise AssertionError(f"inference B={Bi}: metrics {imetrics}")
+        rs.credit("skinny", Bi, Hd, n_calls, n_calls)
+    del dmodel, istate
+    rs.held.clear()
+    torch.cuda.empty_cache()
 
 
 def _bounce(p, span):
@@ -568,7 +750,7 @@ def _bounce(p, span):
     return span - abs(p - span)
 
 
-def write_episodes(np, repo, n_files: int, length: int, action_dim: int, seed: int) -> None:
+def write_episodes(repo, n_files: int, length: int, action_dim: int, seed: int) -> None:
     """Episode files in the generators' format (``image_t`` HWCT uint8, one-hot
     float64 actions, float64 rewards, bool terminal/reset), one episode of
     ``length`` steps each. Frames are a flat background with three moving
@@ -595,24 +777,17 @@ def write_episodes(np, repo, n_files: int, length: int, action_dim: int, seed: i
                             reward=reward, terminal=terminal, reset=reset), i, i)
 
 
-# The learner keys trainer.run reads (config/defaults.yaml `defaults` + `atari`),
-# set for phase 11's short run from episode files on disk.
-LEARNER = dict(
-    env_id="Atari-Pong", env_action_repeat=4, n_env_steps=10**9, seed=0, platform=None,
-    offline_prefill_dir=None, offline_test_dir=None, data_workers=4,
-    generator_workers=1, generator_workers_train=0, generator_workers_eval=0,
-    generator_prefill_steps=0, buffer_size=10_000_000, buffer_size_offline=0,
-    reset_interval=200, allow_mid_reset=True, enable_profiler=False, max_rss_gb=0.0,
-    n_steps=12, log_interval=4, logbatch_interval=1000, save_interval=6,
+# Phase 11's short run from episode files on disk, over the preset's learner
+# keys: no prefill, 12 steps, 2 test and eval batches.
+LEARNER_OVERRIDES = dict(
+    n_env_steps=10**9, generator_prefill_steps=0, n_steps=12, log_interval=4, save_interval=6,
     # The loop stops at n_steps before its eval (as the JAX loop does), so an
     # eval_interval of 12 would never evaluate in a 12-step run.
-    eval_interval=6,
-    test_batches=2, test_batch_size=10, test_save_size=1,
-    eval_batches=2, eval_batch_size=32, eval_samples=1, eval_save_size=1,
+    eval_interval=6, test_batches=2, eval_batches=2,
 )
 
 
-def check_prefetch(torch, batches, device, n: int):
+def check_prefetch(batches, device, n: int):
     """Copy ``n`` preprocessed batches through ``prefetch_iterator`` onto the
     card and hold each device tensor against its numpy source, with a long
     matmul queued on the consumer's stream before each check. -> (batches
@@ -670,42 +845,50 @@ class RssPeak:
         return False
 
 
-def learner_phase(torch, k1, conf, report, path_launches, gen, device, peaks, unfused) -> int:
-    """Phase 11: K1 at the eval protocol's shapes, then ``trainer.run`` on the
-    flagship model from episode files on disk, then a resume. Returns the
-    number of test-protocol train-step calls (for the per-call launch counts)."""
+def learner_phase(rs: RunState) -> None:
+    """11. The learner loop on the flagship model. K1 at the eval protocol's
+    shapes (``skinny`` M=10, ``wide`` M=480) against its plain version and
+    timed as in 2. Then 8 train and 2 eval episode files of 1000 steps
+    (generator format, compressible frames) written with the port's
+    repository; the npz reader in use and one file's decode time; six
+    prefetched batches held against their numpy sources on the card. Then
+    ``trainer.run`` (``data_workers: 4``, 12 steps, step 1 a log step,
+    checkpoints at 6 and 12, the eval protocol at 6), counts set to 0 just
+    before and read just after: K1's launches by rows must match the train
+    steps, the log step's rollout and the eval calls, none ``generic``;
+    finite ``train/`` losses, ``test/`` and ``eval/`` rows with open-loop
+    metrics, npz dumps, a checkpoint at 12. Then a resume to 18: the weights
+    and optimizer state at its first step equal the checkpoint bit for bit,
+    and it takes steps 13-18 (90 ``wide`` launches at M=1536). Reports the
+    loop's ms/step (steps 9-12, from ``train/fps``) beside phase 4's bare
+    step, ``timer_*``, peak host RSS and peak device memory."""
     import resource
     import shutil
-
-    import numpy as np
 
     from pydreamer_tpu_torch import native
     from pydreamer_tpu_torch.data import (NpzEpisodeRepository, Preprocessor, SequentialDataset,
                                           make_repository)
-    from pydreamer_tpu_torch.models.dreamer import Dreamer
     from pydreamer_tpu_torch.tracking import Run, load_checkpoint_file
     from pydreamer_tpu_torch.training import trainer
-    from pydreamer_tpu_torch.training.train_step import TrainStep
 
+    conf, report, device = rs.conf, rs.report, rs.device
     T, B, H_imag = conf.batch_length, conf.batch_size, conf.imag_horizon
     In, H = conf.hidden_dim, conf.deter_dim
-    TB = LEARNER["test_batch_size"]
+    TB = conf.test_batch_size
     out = report["learner"] = {}
 
     # K1 at the eval protocol's shapes: skinny at M=10 (posterior, open loop),
     # wide at M=T*10=480 (the dream of a test batch).
     for M, want in ((TB, "skinny"), (T * TB, "wide")):
-        res = check_k1(torch, k1, M, In, H, torch.bfloat16, want, gen, device, True, peaks, unfused)
-        report["k1"].append(res)
-        print(f"[11] K1 {want} M={M} H={H}: {k1_summary(res)}")
+        rs.k1_row(f"[11] K1 {want} M={M} H={H}", M, In, H, torch.bfloat16, want)
 
     # Episode files: 8 train and 2 eval files of 1000 steps, written by the
     # port's repository as the generators write them.
     episodes = OUT_DIR / "learner_episodes"
     shutil.rmtree(episodes, ignore_errors=True)
     t0 = time.perf_counter()
-    write_episodes(np, NpzEpisodeRepository(episodes / "train"), 8, 1000, conf.action_dim, seed=11)
-    write_episodes(np, NpzEpisodeRepository(episodes / "eval"), 2, 1000, conf.action_dim, seed=12)
+    write_episodes(NpzEpisodeRepository(episodes / "train"), 8, 1000, conf.action_dim, seed=11)
+    write_episodes(NpzEpisodeRepository(episodes / "eval"), 2, 1000, conf.action_dim, seed=12)
     write_s = time.perf_counter() - t0
     files = sorted((episodes / "train").glob("*.npz"))
     t0 = time.perf_counter()
@@ -721,11 +904,11 @@ def learner_phase(torch, k1, conf, report, path_launches, gen, device, peaks, un
           f"in {decode_ms:.2f} ms; 8 train files {mb:.2f} MB written in {write_s:.2f} s")
 
     lconf = conf.replace(offline_data_dir=str(episodes / "train"),
-                         offline_eval_dir=str(episodes / "eval"), **LEARNER)
+                         offline_eval_dir=str(episodes / "eval"), **LEARNER_OVERRIDES)
     # The prefetch's device copies against their numpy sources.
     batches = Preprocessor.from_conf(lconf)(iter(SequentialDataset(
         make_repository(str(episodes / "train")), T, B, reset_interval=200, seed=3)))
-    out["prefetch_batches_equal"], obs = check_prefetch(torch, batches, device, 6)
+    out["prefetch_batches_equal"], obs = check_prefetch(batches, device, 6)
     print(f"[11] prefetch: {out['prefetch_batches_equal']} batches on the card equal their numpy sources")
 
     def bare_step_ms():
@@ -734,14 +917,14 @@ def learner_phase(torch, k1, conf, report, path_launches, gen, device, peaks, un
         torch.manual_seed(0)
         model = Dreamer(conf, device=device)
         ts = TrainStep(model, conf, device=device)
-        _, state, _ = timed_steps(torch, ts, obs, model.init_state(B), 0, 2)
-        ms, _, _ = timed_steps(torch, ts, obs, state, 2, 5)
+        _, state, _ = timed_steps(ts, obs, model.init_state(B), 0, 2)
+        ms, _, _ = timed_steps(ts, obs, state, 2, 5)
         del model, ts, state
         torch.cuda.empty_cache()
         return ms
 
     out["bare_step_ms_turns"] = [bare_step_ms()]
-    run_dir = Path(__file__).resolve().parent / "runs" / "chip_smoke_learner"
+    run_dir = ROOT / "runs" / "chip_smoke_learner"
     shutil.rmtree(run_dir, ignore_errors=True)
     out["host_rss_before_gb"] = rss_gb()
     torch.cuda.synchronize()
@@ -759,7 +942,7 @@ def learner_phase(torch, k1, conf, report, path_launches, gen, device, peaks, un
     # B=10 (and an open loop where a batch continues its episodes), the eval
     # protocol's closed loop on batch 0 and open + closed loop on batch 1 at B=32.
     n_test = rows.get(TB, 0) // T
-    n_eval, EB = 3, LEARNER["eval_batch_size"]
+    n_eval, EB = 3, lconf.eval_batch_size
     want_rows = {}
     for M, n in ((B, n_steps * T + T - 1), (T * B, n_steps * H_imag), (TB, n_test * T),
                  (T * TB, n_test * H_imag), (EB, n_eval * T), (T * EB, n_eval * H_imag)):
@@ -844,12 +1027,11 @@ def learner_phase(torch, k1, conf, report, path_launches, gen, device, peaks, un
           f"GB in trainer.run; peak device memory {out['peak_mem_gb']:.2f} GB")
     shutil.copy(run_dir / "metrics.jsonl", OUT_DIR / "learner_metrics.jsonl")
     shutil.rmtree(run_dir)
-    path_launches[("skinny", TB, H)] = rows[TB]
-    path_launches[("wide", T * TB, H)] = rows[T * TB]
-    return n_test
+    rs.credit("skinny", TB, H, rows[TB], n_test)
+    rs.credit("wide", T * TB, H, rows[T * TB], n_test)
 
 
-def policy_columns_ok(np, data) -> bool:
+def policy_columns_ok(data) -> bool:
     """Within each episode of a generator file (episodes start at ``reset``),
     ``policy_value``/``policy_entropy`` are finite but on the last row and
     ``action_prob`` finite but on the first, as the JAX generator writes them."""
@@ -897,37 +1079,45 @@ def session_processes(sid: int) -> list:
     return pids
 
 
-def generator_phase(torch, k1, conf, report, path_launches, gen, device, peaks, unfused) -> dict:
-    """Phase 12: K1 at the acting shapes of the flagship width, the generator
-    in process on the card at B=1 and B=8, then the launcher end to end.
-    Returns the acting calls per batch size (for the per-call launch counts)."""
+def generator_phase(rs: RunState) -> None:
+    """12. The actors at the flagship width (action_dim 4, ``Grid-8x64``, the
+    one image env that needs no SDK). 12a: K1 ``skinny`` at M=1 and M=8
+    (H=1024) against its plain version, timed as in 2. 12b: ``generator.main``
+    on the card with the network policy from a checkpoint of a seeded model,
+    at B=1 and B=8 (``envs_per_worker``): counts set to 0 just before and read
+    just after each run, one ``skinny`` launch per acting call and none
+    other; at least two episode files each, read back through the repository
+    and ``SequentialDataset`` with the JAX generator's keys, shapes and policy
+    columns; host microseconds per env step. 12c: ``python -m
+    pydreamer_tpu_torch.launch --configs defaults atari`` (two CPU generators,
+    the learner on the card, 80 steps) under ``timeout`` in a session of its
+    own: exit 0, no process of that session left, episodes from both
+    generators, each generator loading the learner's checkpoint, finite
+    ``train/`` losses, a checkpoint at step 80, and the learner's own log line
+    of K1 launches (48 ``skinny`` + 15 ``wide`` a step plus the log step's 47,
+    none ``generic``); the loop's ms/step beside phase 11's and the CPU
+    generators' ``agent/fps``."""
     import os
     import re
     import shutil
 
-    import numpy as np
-
     from pydreamer_tpu_torch import generator
     from pydreamer_tpu_torch.data import SequentialDataset, make_repository
-    from pydreamer_tpu_torch.models.dreamer import Dreamer
     from pydreamer_tpu_torch.tracking import Run, load_checkpoint_model, save_checkpoint_file
 
+    conf, report, device = rs.conf, rs.report, rs.device
     In, H = conf.hidden_dim, conf.deter_dim
     out = report["generator"] = {}
-    root = Path(__file__).resolve().parent
 
     # 12a. K1 skinny at the acting shapes, M=1 (NetworkPolicy) and M=8
     # (VectorNetworkPolicy over 8 envs), at the flagship's H=1024.
     for M in (1, 8):
-        res = check_k1(torch, k1, M, In, H, torch.bfloat16, "skinny", gen, device, True, peaks,
-                       unfused)
-        report["k1"].append(res)
-        print(f"[12] K1 skinny M={M} H={H}: {k1_summary(res)}")
+        rs.k1_row(f"[12] K1 skinny M={M} H={H}", M, In, H, torch.bfloat16, "skinny")
 
     # 12b. generator.main on the card with the network policy from a
     # checkpoint of a flagship model with 4 actions, at B=1 and B=8.
     gconf = conf.replace(action_dim=4)
-    run_dir = root / "runs" / "chip_smoke_generator"
+    run_dir = ROOT / "runs" / "chip_smoke_generator"
     shutil.rmtree(run_dir, ignore_errors=True)
     torch.manual_seed(12)
     save_checkpoint_file(run_dir / "checkpoints" / "latest.ckpt",
@@ -985,7 +1175,7 @@ def generator_phase(torch, k1, conf, report, path_launches, gen, device, peaks, 
             if (set(data) != GEN_KEYS or shapes["image_t"] != (64, 64, 3, n)
                     or shapes["action"] != (n, 4) or data["image_t"].dtype != np.uint8
                     or any(shapes[k] != (n,) for k in GEN_KEYS - {"image_t", "action"})
-                    or not policy_columns_ok(np, data)):
+                    or not policy_columns_ok(data)):
                 raise AssertionError(f"generator B={B} files: {shapes}")
             batch = next(iter(SequentialDataset(make_repository(str(save_dir)), 16, 4, seed=0)))
             if batch["image"].shape != (16, 4, 64, 64, 3) or batch["policy_value"].shape != (16, 4):
@@ -994,20 +1184,20 @@ def generator_phase(torch, k1, conf, report, path_launches, gen, device, peaks, 
     finally:
         generator.NetworkPolicy, generator.VectorNetworkPolicy = plain_policies
         os.environ.pop("PYDREAMER_RUN_DIR", None)
-    path_launches[("skinny", 1, H)] = out[1]["calls"]
-    path_launches[("skinny", 8, H)] = out[8]["calls"]
+    for B in (1, 8):
+        rs.credit("skinny", B, H, calls[B], calls[B])
     shutil.rmtree(run_dir)
     torch.cuda.empty_cache()
 
     # 12c. The launcher: two CPU generators feed the flagship learner on the card.
-    run_dir = root / "runs" / "chip_smoke_launch"
+    run_dir = ROOT / "runs" / "chip_smoke_launch"
     shutil.rmtree(run_dir, ignore_errors=True)
     env = {k: v for k, v in os.environ.items() if k != "PYDREAMER_RUN_DIR"}
-    env["PYTHONPATH"] = str(root)
+    env["PYTHONPATH"] = str(ROOT)
     cmd = ["timeout", "-k", "10", str(LAUNCH_TIMEOUT_S), sys.executable, "-m",
            "pydreamer_tpu_torch.launch", *LAUNCH_ARGS, "--run_dir", str(run_dir)]
     t0 = time.perf_counter()
-    proc = subprocess.Popen(cmd, cwd=root, env=env, start_new_session=True, text=True,
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, start_new_session=True, text=True,
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
     log, _ = proc.communicate()
     launch_s = time.perf_counter() - t0
@@ -1067,7 +1257,6 @@ def generator_phase(torch, k1, conf, report, path_launches, gen, device, peaks, 
                 raise AssertionError(f"launcher train/{k} at step {m['_step']}: {m.get(f'train/{k}')}")
     shutil.copy(run_dir / "metrics.jsonl", OUT_DIR / "launch_metrics.jsonl")
     shutil.rmtree(run_dir)
-    return calls
 
 
 # Phase 13: the MiniWorld preset (config/defaults.yaml `defaults` + `miniworld`,
@@ -1078,11 +1267,11 @@ BASELINES = ("vae", "gru_vae", "transformer_vae", "gru_probe")
 PROBE_METRICS = ("loss_map", "acc_map", "acc_map_seen", "mse_goals", "grad_norm_probe")
 
 
-def make_probe_obs(torch, conf, gen, device):
+def make_probe_obs(conf, gen, device):
     """A MiniWorld-shaped batch with the keys the Preprocessor makes for the
     probes (config/defaults.yaml:206-221) and ``action_next``; half the
     streams go on from the previous batch (no reset at t=0)."""
-    obs = make_obs(torch, conf, gen, device)
+    obs = make_obs(conf, gen, device)
     T, B = obs["reward"].shape
     S, G = conf.map_size, conf.goals_size
 
@@ -1102,7 +1291,7 @@ def make_probe_obs(torch, conf, gen, device):
     return obs
 
 
-def step_times(torch, ts, obs, state, n: int, first_step: int = 1):
+def step_times(ts, obs, state, n: int, first_step: int = 1):
     """n TrainStep calls, each timed alone (host clock, synchronized), the
     TBTT state carried. -> (ms of each, state, last metrics)."""
     times = []
@@ -1122,21 +1311,31 @@ def finite_metrics(metrics, names, what):
     return vals
 
 
-def probe_phase(torch, k1, report, gen, device):
-    """Phase 13: Dreamer with both probes and the four baselines at the
-    MiniWorld width. Returns K1's launches by (schedule, M, H) and the
-    number of calls that made them."""
-    from pydreamer_tpu_torch.conf import parse_args
+def probe_phase(rs: RunState) -> None:
+    """13. The probes and the baseline world models at the MiniWorld width
+    (``--configs defaults miniworld --goals_size 4 --probe_model map+goals``
+    through the port's ``parse_args``: deter 2048, 64x64x3 images with the
+    reward planes, cnn_depth 32, a 9x9x14 map, 3 actions; T=48, B=32, bf16)
+    on synthetic batches with the probes' targets. 13a: Dreamer with
+    ``gru_layernorm_dv2``, three TrainStep calls, then a counted one (48
+    ``skinny`` + 15 ``wide``, none ``generic``), an eval-style call with
+    ``do_image_pred`` (48 + 15 more); a profiled step (busy time); finite
+    probe metrics, the probe's weights moved, and the probe's loss alone
+    gives the world model no gradient. 13b: ``vae``, ``gru_vae``,
+    ``transformer_vae`` and ``gru_probe`` (under ``probe_gradients``), three
+    TrainStep calls each with the TBTT state carried and a profiled fourth,
+    finite losses and both gradient norms, no K1 launch, the median ms per
+    step and the busy time; for the two GRU models a step from the carried
+    state differs from one from zeros on the streams that go on, and only
+    there. 13c: ``gru_vae`` at ``iwae_samples: 3`` for one step."""
     from pydreamer_tpu_torch.models.baselines import WorldModelProbe
-    from pydreamer_tpu_torch.models.dreamer import Dreamer
-    from pydreamer_tpu_torch.models.noise import GeneratorNoise
-    from pydreamer_tpu_torch.training.train_step import TrainStep
 
-    config_dir = str(Path(__file__).resolve().parent / "config")
+    report, device = rs.report, rs.device
+    config_dir = str(ROOT / "config")
     conf = parse_args(MINIWORLD_ARGS, config_dir=config_dir)
     T, B, H_imag, H = conf.batch_length, conf.batch_size, conf.imag_horizon, conf.deter_dim
     out = report["probes"] = {}
-    obs = make_probe_obs(torch, conf, gen, device)
+    obs = make_probe_obs(conf, rs.gen, device)
 
     # 13a. Dreamer with the map and goals probes, K1 in both loops.
     torch.manual_seed(13)
@@ -1144,9 +1343,9 @@ def probe_phase(torch, k1, report, gen, device):
     ts = TrainStep(model, conf, device=device)
     probe_before = [p.detach().clone() for p in model.probe.parameters()]
     torch.cuda.reset_peak_memory_stats()
-    times, state, _ = step_times(torch, ts, obs, model.init_state(B), 3)
+    times, state, _ = step_times(ts, obs, model.init_state(B), 3)
     k1.LAUNCHES.reset()
-    counted, state, metrics = step_times(torch, ts, obs, state, 1, first_step=4)
+    counted, state, metrics = step_times(ts, obs, state, 1, first_step=4)
     rows, sched = dict(k1.LAUNCHES.by_rows), dict(k1.LAUNCHES.by_schedule)
     state, prof, _ = profile_step(ts, obs, state, 5)
     check_profiled_k1(prof, T, H_imag, "[13a] profiled step")
@@ -1189,8 +1388,8 @@ def probe_phase(torch, k1, report, gen, device):
             raise AssertionError(f"[13a] eval call tensor {k}: {sorted(etensors)}")
     del model, ts, state, losses
     torch.cuda.empty_cache()
-    launches = {(kind, M, H): sched[kind] + eval_sched[kind]
-                for kind, M in (("skinny", B), ("wide", T * B))}
+    for kind, M in (("skinny", B), ("wide", T * B)):
+        rs.credit(kind, M, H, sched[kind] + eval_sched[kind], 2)  # a step and an eval call
 
     # 13b. The four baselines: no K1, the TBTT state carried.
     for name in BASELINES:
@@ -1202,7 +1401,7 @@ def probe_phase(torch, k1, report, gen, device):
         torch.cuda.reset_peak_memory_stats()
         k1.LAUNCHES.reset()
         state0 = bmodel.init_state(B)
-        times, state, metrics = step_times(torch, bts, obs, state0, 3)
+        times, state, metrics = step_times(bts, obs, state0, 3)
         n_k1 = k1.LAUNCHES.count
         state, prof, _ = profile_step(bts, obs, state, 4)
         vals = finite_metrics(metrics, ("loss_model", "loss_probe", "grad_norm", "grad_norm_probe")
@@ -1245,7 +1444,7 @@ def probe_phase(torch, k1, report, gen, device):
     iconf = parse_args(MINIWORLD_ARGS + ["--model", "gru_vae", "--iwae_samples", "3"],
                        config_dir=config_dir)
     imodel = WorldModelProbe(iconf, device=device)
-    times, state, metrics = step_times(torch, TrainStep(imodel, iconf, device=device), obs,
+    times, state, metrics = step_times(TrainStep(imodel, iconf, device=device), obs,
                                        imodel.init_state(3 * B), 1)
     vals = finite_metrics(metrics, ("loss_model", "loss_dyn", "loss_probe", "grad_norm"),
                           "[13c] gru_vae I=3")
@@ -1257,7 +1456,6 @@ def probe_phase(torch, k1, report, gen, device):
     del imodel, state
     torch.cuda.empty_cache()
     (OUT_DIR / "probe_phase.json").write_text(json.dumps(out, indent=1))
-    return launches, 2
 
 
 # Phase 14: the learner on a mesh of ranks. 14a runs the production backend
@@ -1281,33 +1479,21 @@ RANK_TIMEOUT_S = 420
 TP_MIN_SIZE = 1024    # 14c: the GRU gate kernels (3H = 3072) and each Dense with out >= 1024
 
 
-def _free_port() -> int:
-    import socket
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def mesh_rank(rank: int, port: int, mode: str, out_path: str, device: str = "cuda:0") -> None:
-    """One of two ranks on ``device`` (the one card): 3 flagship steps on its
-    rows of one global batch (``mode`` "dp": data 2; "tp": model 2,
-    ``TP_MIN_SIZE``), then for "dp" 3 float32 steps; K1's launches by rows
-    each step, the rank's parameter and AdamW bytes. Writes its report to
-    ``out_path``."""
-    import torch
+def mesh_rank(rank: int, store: str, mode: str, out_path: str, device: str = "cuda:0") -> None:
+    """One of two ranks on ``device`` (the one card), meeting through the new
+    file ``store``: 3 flagship steps on its rows of one global batch
+    (``mode`` "dp": data 2; "tp": model 2, ``TP_MIN_SIZE``), then for "dp" 3
+    float32 steps; K1's launches by rows each step, the rank's parameter and
+    AdamW bytes. Writes its report to ``out_path``."""
     import torch.distributed as dist
 
-    from pydreamer_tpu_torch.conf import Conf
-    from pydreamer_tpu_torch.models.dreamer import Dreamer
-    from pydreamer_tpu_torch.ops import gru_dv2 as k1
     from pydreamer_tpu_torch.parallel import DistributedContext, batch_sharding
     from pydreamer_tpu_torch.parallel.multihost import COLLECTIVE_TIMEOUT
-    from pydreamer_tpu_torch.training.train_step import TrainStep
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device(device)
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2,
+    dist.init_process_group("gloo", init_method=f"file://{store}", world_size=2,
                             rank=rank, timeout=COLLECTIVE_TIMEOUT)
     mesh = dict(mesh_data=2, mesh_model=1) if mode == "dp" else dict(mesh_data=1, mesh_model=2,
                                                                       tp_min_size=TP_MIN_SIZE)
@@ -1324,7 +1510,7 @@ def mesh_rank(rank: int, port: int, mode: str, out_path: str, device: str = "cud
         sharded = sorted(n_ for n_, s in ctx.shardings.items() if s.axis == "model")
         gen = torch.Generator(device=device).manual_seed(14)
         obs = {k: batch_sharding(ctx.mesh).local(ctx.mesh, v).contiguous()
-               for k, v in make_obs(torch, conf, gen, device).items()}
+               for k, v in make_obs(conf, gen, device).items()}
         state = model.init_state(obs["action"].shape[1])
         steps = []
         for step in range(1, n + 1):
@@ -1352,9 +1538,9 @@ def mesh_rank(rank: int, port: int, mode: str, out_path: str, device: str = "cud
         torch.cuda.empty_cache()
         return info
 
-    out["bf16"] = run(Conf(dict(FLAGSHIP, **mesh)), MESH_STEPS)
+    out["bf16"] = run(Conf(dict(flagship_conf(), **mesh)), MESH_STEPS)
     if mode == "dp":
-        out["f32"] = run(Conf(dict(FLAGSHIP, precision="float32", **mesh)), MESH_STEPS)
+        out["f32"] = run(Conf(dict(flagship_conf(), precision="float32", **mesh)), MESH_STEPS)
     dist.destroy_process_group()
     Path(out_path).write_text(json.dumps(out))
 
@@ -1364,11 +1550,11 @@ def spawn_mesh(mode: str, device: str = "cuda:0") -> list:
     ``RANK_TIMEOUT_S`` fails the phase. -> their reports."""
     import multiprocessing as mp
     ctx = mp.get_context("spawn")
-    port = _free_port()
+    store = OUT_DIR / f"phase14_{mode}_store"  # the ranks' rendezvous: no port to be taken first
     paths = [OUT_DIR / f"phase14_{mode}_rank{r}.json" for r in range(2)]
-    for p in paths:
+    for p in (store, *paths):
         p.unlink(missing_ok=True)
-    procs = [ctx.Process(target=mesh_rank, args=(r, port, mode, str(paths[r]), device))
+    procs = [ctx.Process(target=mesh_rank, args=(r, str(store), mode, str(paths[r]), device))
              for r in range(2)]
     for p in procs:
         p.start()
@@ -1381,6 +1567,7 @@ def spawn_mesh(mode: str, device: str = "cuda:0") -> list:
         for p in alive:
             p.kill()
             p.join()
+        store.unlink(missing_ok=True)
     codes = [p.exitcode for p in procs]
     if alive or codes != [0, 0]:
         raise AssertionError(f"[14] {mode} ranks: exit codes {codes}, "
@@ -1393,16 +1580,14 @@ def spawn_mesh(mode: str, device: str = "cuda:0") -> list:
     return reports
 
 
-def single_steps(torch, k1, conf, n: int, device):
+def single_steps(conf, n: int, device):
     """The reference: one process, the whole batch, the same seeds; K1's
     launches counted each step."""
-    from pydreamer_tpu_torch.models.dreamer import Dreamer
-    from pydreamer_tpu_torch.training.train_step import TrainStep
     torch.manual_seed(0)
     model = Dreamer(conf, device=device)
     ts = TrainStep(model, conf, device=device)
     gen = torch.Generator(device=device).manual_seed(14)
-    obs = make_obs(torch, conf, gen, device)
+    obs = make_obs(conf, gen, device)
     state = model.init_state(conf.batch_size)
     steps = []
     for step in range(1, n + 1):
@@ -1420,14 +1605,13 @@ def single_steps(torch, k1, conf, n: int, device):
     return steps
 
 
-def f32_step_ab(torch, k1, conf, device, n: int) -> dict:
+def f32_step_ab(conf, device, n: int) -> dict:
     """The float32 flagship step as the port runs it (K1 on ``skinny_f32`` /
     ``wide_f32``) against the same step with K1's launches put on the first
     f32 design (the FFMA schedule ``f32``), in turns (ffma, 3xtf32, 3xtf32,
     ffma), ``n`` steps a window after 2 warm-up steps. -> ms per step by
     variant and each window's launches by schedule."""
-    from pydreamer_tpu_torch.models.dreamer import Dreamer
-    from pydreamer_tpu_torch.training.train_step import CudaGraphs, StepGraphs, TrainStep
+    from pydreamer_tpu_torch.training.train_step import CudaGraphs, StepGraphs
     plan = k1.plan
 
     def ffma_plan(M, In, H, *dtypes):
@@ -1437,7 +1621,7 @@ def f32_step_ab(torch, k1, conf, device, n: int) -> dict:
     model = Dreamer(conf, device=device)
     ts = TrainStep(model, conf, device=device)
     gen = torch.Generator(device=device).manual_seed(14)
-    obs = make_obs(torch, conf, gen, device)
+    obs = make_obs(conf, gen, device)
     state, step = model.init_state(conf.batch_size), 0
     out = {"ffma": [], "3xtf32": [], "launches": []}
     # A replay runs the schedules its capture planned: each variant replays
@@ -1448,10 +1632,10 @@ def f32_step_ab(torch, k1, conf, device, n: int) -> dict:
             k1.plan = ffma_plan if variant == "ffma" else plan
             ts.graphs = graphs[variant]
             if not ts.graphs.captured:
-                _, state, _ = timed_steps(torch, ts, obs, state, step, 2)
+                _, state, _ = timed_steps(ts, obs, state, step, 2)
                 step += 2
             k1.LAUNCHES.reset()
-            ms, state, _ = timed_steps(torch, ts, obs, state, step, n)
+            ms, state, _ = timed_steps(ts, obs, state, step, n)
             step += n
             out[variant].append(ms)
             out["launches"].append((variant, dict(k1.LAUNCHES.by_schedule)))
@@ -1479,17 +1663,47 @@ def compare_steps(got, want, rtol: float, what: str, later=WM_TOTALS) -> list:
     return rels
 
 
-def mesh_phase(torch, k1, conf, report, path_launches, gen, device, peaks, unfused) -> dict:
-    """Phase 14. Returns the data-parallel rank-steps that made the M=16 /
-    M=768 launches and the tensor-parallel ones at M=32 / M=1536."""
+def mesh_phase(rs: RunState) -> None:
+    """14. The learner on a mesh of ranks (``parallel/``). 14a: ``trainer.run``
+    on the flagship model from phase 11's files (``data_workers: 1``, 8 steps,
+    step 1 a log step, a checkpoint at 8) at world size 1 under the
+    production backend ``cpu:gloo,cuda:nccl``, then the same 8 steps with no
+    group: the ``train/`` losses and the final weights agree (cuDNN held
+    deterministic; bit for bit is reported, within 1e-4 relative / 1e-3
+    absolute is required), K1's launches by rows match the steps. 14b: K1
+    ``skinny`` at M=16 and ``wide`` at M=768 (the data ranks' shapes) against
+    its plain version, timed as in 2; then two ranks on the one card over gloo
+    (NCCL refuses two ranks on one device), ``mesh_data: 2``, each stepping on
+    B=16 of one B=32 batch from the same weights with its rows of the global
+    noise: 3 bf16 steps against one process at B=32 (step 1, from the same
+    weights: every world-model loss and ``grad_norm`` within 2e-2 relative;
+    steps 2-3: ``loss_model`` and ``loss_image`` within 2e-2, the rest
+    reported, see ``WM_TOTALS``), 3 float32 steps (TF32 off) with every
+    world-model metric within 1e-4 at every step, and per rank per step 48
+    ``skinny`` [M=16] and 15 ``wide`` [M=768] launches in bf16, 48
+    ``skinny_f32`` [M=16] and 15 ``wide_f32`` [M=768] in float32, none
+    ``generic`` or ``f32``. The float32 reference (one process, B=32) takes 48
+    ``skinny_f32`` + 15 ``wide_f32`` a step; its step is then timed in turns
+    against the same step with K1 put on the FFMA schedule ``f32``
+    (``f32_step_ab``). K1 ``skinny_f32`` / ``wide_f32`` at M=16 / M=768 are
+    held and timed beside the bf16 rows. 14c: ``mesh_model: 2``,
+    ``tp_min_size: 1024`` on two ranks: the sharded parameters listed, each
+    rank's parameter and AdamW bytes smaller by half of the sharded bytes, 3
+    steps against one process as in 14b, K1 at M=32 / M=1536 on the gathered
+    gate kernels. The ranks' ms per step are printed beside phase 4's: two
+    ranks share one card and one host, so they are no multi-GPU number. Every
+    group meets through a new file (torch's ``file://`` rendezvous), never a
+    port chosen in advance."""
     import os
     import shutil
 
     import torch.distributed as dist
 
+    from pydreamer_tpu_torch.parallel.multihost import INIT_FILE_ENV
     from pydreamer_tpu_torch.tracking import Run, load_checkpoint_file
     from pydreamer_tpu_torch.training import trainer
 
+    conf, report, device = rs.conf, rs.report, rs.device
     T, B, H_imag = conf.batch_length, conf.batch_size, conf.imag_horizon
     In, H = conf.hidden_dim, conf.deter_dim
     out = report["mesh"] = {}
@@ -1499,13 +1713,15 @@ def mesh_phase(torch, k1, conf, report, path_launches, gen, device, peaks, unfus
     episodes = OUT_DIR / "learner_episodes"
     aconf = conf.replace(offline_data_dir=str(episodes / "train"),
                          offline_eval_dir=str(episodes / "eval"),
-                         **dict(LEARNER, data_workers=1, n_steps=8, save_interval=8,
-                                eval_interval=0, log_interval=4, mesh_data=0, mesh_model=1))
-    runs = Path(__file__).resolve().parent / "runs"
+                         **dict(LEARNER_OVERRIDES, data_workers=1, n_steps=8, save_interval=8,
+                                eval_interval=0, log_interval=4))
+    runs = ROOT / "runs"
     cudnn_flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
-    env = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()), WORLD_SIZE="1", RANK="0",
-               LOCAL_RANK="0", LOCAL_WORLD_SIZE="1")
+    store = OUT_DIR / "phase14a_store"
+    store.unlink(missing_ok=True)
+    env = {INIT_FILE_ENV: str(store), "WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0",
+           "LOCAL_WORLD_SIZE": "1"}
     results = {}
     try:
         for tag in ("group", "plain"):
@@ -1531,6 +1747,7 @@ def mesh_phase(torch, k1, conf, report, path_launches, gen, device, peaks, unfus
             shutil.rmtree(run_dir)
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn_flags
+        store.unlink(missing_ok=True)
     g, p = results["group"], results["plain"]
     want_rows = {B: 8 * T + T - 1, T * B: 8 * H_imag}  # step 1 logs: T-1 more skinny
     losses = {k: (g["rows"][-1][k], p["rows"][-1][k]) for k in g["rows"][-1]
@@ -1556,15 +1773,15 @@ def mesh_phase(torch, k1, conf, report, path_launches, gen, device, peaks, unfus
                              f"weights max abs diff {weight_diff}")
 
     # The reference for 14b and 14c: one process, B=32, the same seeds.
-    ref = single_steps(torch, k1, conf, MESH_STEPS, device)
+    ref = single_steps(conf, MESH_STEPS, device)
     conf32 = conf.replace(precision="float32")
-    ref32 = single_steps(torch, k1, conf32, MESH_STEPS, device)
+    ref32 = single_steps(conf32, MESH_STEPS, device)
     want_f32 = ({B: T, T * B: H_imag}, {"skinny_f32": T, "wide_f32": H_imag})
     for i, s in enumerate(ref32):
         if (s["by_rows"], s["by_schedule"]) != want_f32:
             raise AssertionError(f"[14b] one process, float32 step {i + 1}: K1 launches "
                                  f"{s['by_rows']} {s['by_schedule']}, expected {want_f32}")
-    ab = f32_step_ab(torch, k1, conf32, device, AB_STEPS)
+    ab = f32_step_ab(conf32, device, AB_STEPS)
     n_ab = len(ab["3xtf32"]) * AB_STEPS
     for variant, sched in ab["launches"]:
         want = ({"f32": AB_STEPS * (T + H_imag)} if variant == "ffma"
@@ -1577,16 +1794,14 @@ def mesh_phase(torch, k1, conf, report, path_launches, gen, device, peaks, unfus
           f"after 2 warm-up steps, {AB_STEPS} steps a window: K1 on skinny_f32 / wide_f32 "
           f"{[round(x, 2) for x in ab['3xtf32']]} ms/step, on the FFMA schedule f32 "
           f"{[round(x, 2) for x in ab['ffma']]}")
-    path_launches[("skinny_f32", B, H)] = MESH_STEPS * T + n_ab * T
-    path_launches[("wide_f32", T * B, H)] = MESH_STEPS * H_imag + n_ab * H_imag
+    rs.credit("skinny_f32", B, H, MESH_STEPS * T + n_ab * T, MESH_STEPS + n_ab)
+    rs.credit("wide_f32", T * B, H, MESH_STEPS * H_imag + n_ab * H_imag, MESH_STEPS + n_ab)
 
     # 14b. Data parallel: two ranks, B=16 each.
     for M, want, dtype in ((B // 2, "skinny", torch.bfloat16), (T * B // 2, "wide", torch.bfloat16),
                            (B // 2, "skinny_f32", torch.float32),
                            (T * B // 2, "wide_f32", torch.float32)):
-        res = check_k1(torch, k1, M, In, H, dtype, want, gen, device, True, peaks, unfused)
-        report["k1"].append(res)
-        print(f"[14b] K1 {want} M={M} H={H}: {k1_summary(res)}")
+        rs.k1_row(f"[14b] K1 {want} M={M} H={H}", M, In, H, dtype, want)
     dp = spawn_mesh("dp", str(device))
     worst = [compare_steps(r["bf16"]["steps"], ref, MESH_RTOL, f"[14b] rank {r['rank']}")
              for r in dp]
@@ -1614,13 +1829,10 @@ def mesh_phase(torch, k1, conf, report, path_launches, gen, device, peaks, unfus
           f"process, step 1 max rel {max(w[0][k] for w in worst for k in WM_METRICS):.3g} / "
           f"{max(w[0][k] for w in worst32 for k in WM_METRICS):.3g}; K1 per rank per step "
           f"{dp[0]['bf16']['steps'][0]['by_rows']}")
-    path_launches[("skinny", B // 2, H)] = sum(s["by_schedule"]["skinny"] for r in dp
-                                               for s in r["bf16"]["steps"])
-    path_launches[("wide", T * B // 2, H)] = sum(s["by_schedule"]["wide"] for r in dp
-                                                 for s in r["bf16"]["steps"])
-    for sched, M in (("skinny_f32", B // 2), ("wide_f32", T * B // 2)):
-        path_launches[(sched, M, H)] = sum(s["by_schedule"][sched] for r in dp
-                                           for s in r["f32"]["steps"])
+    for part, sched, M in (("bf16", "skinny", B // 2), ("bf16", "wide", T * B // 2),
+                           ("f32", "skinny_f32", B // 2), ("f32", "wide_f32", T * B // 2)):
+        rs.credit(sched, M, H, sum(s["by_schedule"][sched] for r in dp for s in r[part]["steps"]),
+                  2 * MESH_STEPS)  # rank-steps
 
     # 14c. Tensor parallel: two ranks, the wide kernels split.
     tp = spawn_mesh("tp", str(device))
@@ -1659,12 +1871,9 @@ def mesh_phase(torch, k1, conf, report, path_launches, gen, device, peaks, unfus
           f"(phase 4 {report['step_ms']:.2f}); world-model metrics step 1 max rel "
           f"{max(w[0][k] for w in worst_tp for k in WM_METRICS):.3g}; K1 per rank per step "
           f"{t0['steps'][0]['by_rows']}")
-    path_launches[("skinny", B, H)] += sum(s["by_schedule"]["skinny"] for r in tp
-                                           for s in r["bf16"]["steps"])
-    path_launches[("wide", T * B, H)] += sum(s["by_schedule"]["wide"] for r in tp
-                                             for s in r["bf16"]["steps"])
-    return dict(dp_rank_steps=2 * MESH_STEPS, tp_rank_steps=2 * MESH_STEPS,
-                f32_steps=MESH_STEPS + n_ab)
+    for sched, M in (("skinny", B), ("wide", T * B)):
+        rs.credit(sched, M, H, sum(s["by_schedule"][sched] for r in tp for s in r["bf16"]["steps"]),
+                  2 * MESH_STEPS)
 
 
 # Phase 15: learning on the card. The canaries of tests/test_learning.py
@@ -1708,49 +1917,72 @@ LIVE_ARGS = ["--configs", "defaults", "gridworld", "--gru_type", "gru_layernorm_
 LIVE_TIMEOUT_S = 420
 
 
-def run_tool(root, tool: str, *args) -> str:
+def run_tool(tool: str, *args) -> str:
     """``python -m pydreamer_tpu_torch.scripts.<tool> args`` -> its last line."""
     proc = subprocess.run([sys.executable, "-m", f"pydreamer_tpu_torch.scripts.{tool}",
-                           *map(str, args)], cwd=root, capture_output=True, text=True)
+                           *map(str, args)], cwd=ROOT, capture_output=True, text=True)
     if proc.returncode != 0:
         raise AssertionError(f"{tool} exit {proc.returncode}:\n{proc.stdout}\n{proc.stderr}")
     return proc.stdout.strip().splitlines()[-1]
 
 
-def learning_phase(torch, k1, report, path_launches, per_step, gen, device, peaks,
-                   unfused) -> None:
-    """Phase 15: the live GridWorld run started (15c), K1 at the canaries' and
-    the live run's shapes (15a), the four canaries on the card through K1
-    (15b), then the live run's checks and the run tools. Adds the paths'
-    launches by (schedule, M, H) and their train steps or acting calls by (M, H)."""
+def learning_phase(rs: RunState) -> None:
+    """15. Learning on the card. 15c, the live run, starts first: ``python -m
+    pydreamer_tpu_torch.launch --configs defaults gridworld --gru_type
+    gru_layernorm_dv2`` (deter 256, T=48, B=32, bf16, ``Grid-8x64``, one CPU
+    generator reloading the checkpoint every 15 s) for 480 steps under
+    ``timeout`` in a session of its own, running beside 15a and 15b (its own
+    processes; its log goes to a file). 15a: K1 at the shapes no earlier
+    phase launched, against its plain version and timed as in 2:
+    ``skinny_f32`` at each canary's posterior (M=B) and acting (M=1) rows,
+    ``wide_f32`` at its dream (M=T*B) rows (H=32 and 64), and ``skinny`` M=32
+    and ``wide`` M=1536 at the ``gridworld`` preset's In=H=256 in bf16. 15b:
+    the four learning canaries of ``tests/test_learning.py``
+    (``pydreamer_tpu_torch/scripts/canaries.py``) on the card with
+    ``gru_type: gru_layernorm_dv2``, each held to the JAX test's own gate
+    (bandit: after > 6 and after > before + 2; GridWorld world model:
+    ``loss_model`` at step 60 under half of step 5's; pixel policy: the
+    rolling 80-episode gate clears by step 4000; point: after > before + 4 and
+    after > 12), counts set to 0 just before and read just after each: T
+    posterior launches a train step on ``skinny_f32``, H dream launches on
+    ``wide_f32`` and one ``skinny_f32`` launch a policy call, exact per
+    schedule. Then 15c's checks: exit 0, no process left, ``loss_model`` at
+    the last log step under half its first logged value, the generator's
+    ``agent/`` rows both before and after its first checkpoint load, the
+    learner's K1 line (48 ``skinny`` [M=32] + 10 ``wide`` [M=1536] a step plus
+    the log step's 47, none ``generic``). Then the run tools on its
+    directory, as ``python -m pydreamer_tpu_torch.scripts.<tool>``:
+    ``export_metrics`` (a CSV whose first column is ``_step``),
+    ``plot_curves`` (a PNG) where matplotlib is installed and ``make_gif`` (a
+    GIF of the run's ``d2_wm_dream`` dump) where PIL is; what a tool would
+    read is kept in ``chiprun_out/live_run/`` beside what they wrote."""
     import importlib.util
     import os
     import re
     import shutil
     import tempfile
 
-    from pydreamer_tpu_torch.conf import parse_args
     from pydreamer_tpu_torch.scripts import canaries
     from pydreamer_tpu_torch.tracking import Run
 
     t_phase = time.perf_counter()
-    root = Path(__file__).resolve().parent
-    out = report["learning"] = {}
+    device = rs.device
+    out = rs.report["learning"] = {}
     confs = {name: make("gru_layernorm_dv2") for name, make in canaries.CONFS.items()}
-    live_conf = parse_args(LIVE_ARGS[:5], config_dir=str(root / "config"))
+    live_conf = parse_args(LIVE_ARGS[:5], config_dir=str(ROOT / "config"))
 
     # 15c, started: the launcher in a session of its own, its log to a file.
-    run_dir = root / "runs" / "chip_smoke_live"
+    run_dir = ROOT / "runs" / "chip_smoke_live"
     shutil.rmtree(run_dir, ignore_errors=True)
     run_dir.parent.mkdir(exist_ok=True)
     env = {k: v for k, v in os.environ.items() if k != "PYDREAMER_RUN_DIR"}
-    env["PYTHONPATH"] = str(root)
+    env["PYTHONPATH"] = str(ROOT)
     cmd = ["timeout", "-k", "10", str(LIVE_TIMEOUT_S), sys.executable, "-m",
            "pydreamer_tpu_torch.launch", *LIVE_ARGS, "--run_dir", str(run_dir)]
     log_path = OUT_DIR / "live_log.txt"
     t_live = time.time()
     with open(log_path, "w") as log_file:
-        proc = subprocess.Popen(cmd, cwd=root, env=env, start_new_session=True,
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=env, start_new_session=True,
                                 stdout=log_file, stderr=subprocess.STDOUT)
 
     # 15a. K1 at the new shapes: float32 at each canary's posterior (M=B,
@@ -1768,12 +2000,10 @@ def learning_phase(torch, k1, report, path_launches, per_step, gen, device, peak
     shapes[("skinny", B, In, H)] = torch.bfloat16
     shapes[("wide", T * B, In, H)] = torch.bfloat16
     for (want, M, In_s, H_s), dtype in shapes.items():
-        res = check_k1(torch, k1, M, In_s, H_s, dtype, want, gen, device, True, peaks, unfused)
-        report["k1"].append(res)
-        print(f"[15a] K1 {want} M={M} In={In_s} H={H_s}: {k1_summary(res)}")
+        rs.k1_row(f"[15a] K1 {want} M={M} In={In_s} H={H_s}", M, In_s, H_s, dtype, want)
 
     # 15b. The canaries on the card, each launch of K1 counted.
-    scratch = Path(tempfile.mkdtemp(prefix="canaries_", dir=root / "runs"))
+    scratch = Path(tempfile.mkdtemp(prefix="canaries_", dir=ROOT / "runs"))
     runners = {"bandit": canaries.bandit, "gridworld_wm": canaries.gridworld_wm,
                "gridworld_pixels": lambda d, **kw: canaries.gridworld_pixels(d, pixel_until, **kw),
                "point": canaries.point}
@@ -1804,11 +2034,7 @@ def learning_phase(torch, k1, report, path_launches, per_step, gen, device, peak
         if not math.isfinite(r["metrics"]["loss_model"]) or not r["ok"]:
             raise AssertionError(f"[15b] {name} failed the JAX test's gate: {r}")
         for M, n in rows.items():
-            key = (sched_of[M], M, c.deter_dim)
-            path_launches[key] = path_launches.get(key, 0) + n
-            per_key = (M, c.deter_dim, "float32")
-            per_step[per_key] = per_step.get(per_key, 0) + (
-                r["policy_calls"] if M == 1 else r["steps"])
+            rs.credit(sched_of[M], M, c.deter_dim, n, r["policy_calls"] if M == 1 else r["steps"])
     shutil.rmtree(scratch)
     torch.cuda.empty_cache()
 
@@ -1874,10 +2100,8 @@ def learning_phase(torch, k1, report, path_launches, per_step, gen, device, peak
     if not before_load or not after_load or not loads:
         raise AssertionError(f"live run agent rows: {len(before_load)} before the first "
                              f"checkpoint load, {len(after_load)} after; loads {loads}")
-    path_launches[("skinny", B, H)] = path_launches.get(("skinny", B, H), 0) + sched["skinny"]
-    path_launches[("wide", T * B, H)] = path_launches.get(("wide", T * B, H), 0) + sched["wide"]
-    per_step[(B, H)] = per_step.get((B, H), 0) + n
-    per_step[(T * B, H)] = per_step.get((T * B, H), 0) + n
+    rs.credit("skinny", B, H, sched["skinny"], n)
+    rs.credit("wide", T * B, H, sched["wide"], n)
 
     # The run tools on the run directory. plot_curves draws with matplotlib and
     # make_gif with PIL: where one is not installed that tool is not run, and
@@ -1891,7 +2115,7 @@ def learning_phase(torch, k1, report, path_launches, per_step, gen, device, peak
     shutil.copy(run_dir / "metrics.jsonl", tools_dir / "metrics.jsonl")
     shutil.copy(dumps[-1], tools_dir / dumps[-1].name)
     csv_path = tools_dir / "metrics.csv"
-    said = {"export_metrics": run_tool(root, "export_metrics", run_dir, csv_path)}
+    said = {"export_metrics": run_tool("export_metrics", run_dir, csv_path)}
     header = csv_path.read_text().splitlines()[0].split(",")
     if header[0] != "_step":
         raise AssertionError(f"export_metrics: CSV header {header[:3]}")
@@ -1903,7 +2127,7 @@ def learning_phase(torch, k1, report, path_launches, per_step, gen, device, peak
         if importlib.util.find_spec(package) is None:
             said[tool] = f"not run: {package} is not installed here"
             continue
-        said[tool] = run_tool(root, *args)
+        said[tool] = run_tool(*args)
         if not Path(args[-1]).stat().st_size:
             raise AssertionError(f"{tool} wrote an empty {args[-1]}")
     live["tools"] = said
@@ -1917,7 +2141,6 @@ def learning_phase(torch, k1, report, path_launches, per_step, gen, device, peak
 # steps, bench_gru's three cells, ...) would take minutes at the flagship width,
 # and the phase must leave the whole script well inside its 1200 s.
 TOOL_STEPS = dict(warmup=2, steps=3)
-DV2 = "gru_layernorm_dv2"
 
 
 def _finite(x) -> bool:
@@ -1929,26 +2152,35 @@ def _finite(x) -> bool:
     return x is None or isinstance(x, str) or math.isfinite(x)
 
 
-def tools_phase(torch, k1, report, path_launches, per_step, peaks, smi: str,
-                with_e2e: bool) -> None:
-    """Phase 16: the measurement tools of ``pydreamer_tpu_torch/scripts/``, each
+def tools_phase(rs: RunState, with_e2e: bool = False) -> None:
+    """16. The measurement tools of ``pydreamer_tpu_torch/scripts/``, each
     ``main(argv)`` in-process on the card at the flagship width with short
-    step counts. Checks each line's keys, its card provenance and finite
-    values, K1's launches per step of ``bench_gru`` (exact, by cell), that
-    ``profile_step`` saw kernels of both K1 schedules, and that ``roofline``'s
-    K1 bound is phase 2's. K1's launches in the phase are counted by rows
-    (each tool's own, set to 0 before it and read after) and added to the
-    flagship rows (``skinny`` M=32, ``wide`` M=1536)."""
+    step counts (2 warm-up steps, windows of 1-5): ``bench`` (``gru``),
+    ``bench_gru`` (three cells), ``bench_step_ab`` (``gru`` against
+    ``gru_layernorm_dv2`` in turns), ``profile_step`` under
+    ``gru_layernorm_dv2``, ``bench_dream`` (both cells at M=1536),
+    ``roofline`` at the card's peaks, ``bench_conv --all``, ``scaling_bench``
+    (one NCCL rank a card). Each line must carry the JAX tool's keys, finite
+    values and the card's name and nvidia-smi line; K1's launches in each
+    tool are set to 0 before it and read after, T ``skinny`` [M=B] a DV2
+    train step and H ``wide`` [M=T*B] a DV2 train step or dream call, exact;
+    ``bench_gru`` reports 48 + 15 a step under both DV2 cells and none under
+    ``gru``; ``profile_step`` saw kernel records of both schedules;
+    ``roofline``'s K1 bound equals phase 2's (so phase 2's flagship rows run
+    first). One ``[16] tools summary`` line; details in
+    ``chiprun_out/tools_phase.json``. ``with_e2e`` (``--tools-only``) adds
+    ``bench_e2e --quick`` (six CPU generator processes: 139 s on an H100's
+    host) and ``scaling_bench --gspmd-overhead`` (a second rank process); the
+    whole run has no room for them."""
     from pydreamer_tpu_torch.scripts import (bench, bench_conv, bench_dream, bench_e2e, bench_gru,
                                              bench_step_ab, flagship, roofline, scaling_bench)
     from pydreamer_tpu_torch.scripts import profile_step as profile_tool
 
-    conf = flagship.make_conf()
+    conf, report, smi, name = flagship.make_conf(), rs.report, rs.smi, rs.name
     T, B, H_imag, In, H = (conf.batch_length, conf.batch_size, conf.imag_horizon,
                            conf.hidden_dim, conf.deter_dim)
     w, n = TOOL_STEPS["warmup"], TOOL_STEPS["steps"]
     out = report["tools"] = {"seconds": {}}
-    name = torch.cuda.get_device_name(0)
     dv2_steps = dream_calls = 0
 
     def run(tool, argv, keys, steps=0, dreams=0, label=None):
@@ -2028,7 +2260,7 @@ def tools_phase(torch, k1, report, path_launches, per_step, peaks, smi: str,
     rows = run(roofline, [], [{"conv_pair", "dream_scan", "rssm_fwd_scan", "dims"}])
     out["roofline"] = rows
     for M, sched in ((B, "skinny"), (T * B, "wide")):
-        bound = roofline.k1_bound_ms(M, In, H, peaks, True)[0]
+        bound = roofline.k1_bound_ms(M, In, H, rs.peaks, True)[0]
         used = [r["bound_ms"] for r in report["k1"] if (r["schedule"], r["M"], r["H"], r["dtype"])
                 == (sched, M, H, "bfloat16")]
         if used != [bound]:
@@ -2064,11 +2296,8 @@ def tools_phase(torch, k1, report, path_launches, per_step, peaks, smi: str,
         print(f"[16] bench_e2e --quick: pipeline {line['value']:.4f} steps/s; extra "
               f"{line['extra']}; host {line['host_breakdown']}")
 
-    path_launches[("skinny", B, H)] = path_launches.get(("skinny", B, H), 0) + T * dv2_steps
-    path_launches[("wide", T * B, H)] = (path_launches.get(("wide", T * B, H), 0)
-                                         + H_imag * (dv2_steps + dream_calls))
-    per_step[(B, H)] = per_step.get((B, H), 0) + dv2_steps
-    per_step[(T * B, H)] = per_step.get((T * B, H), 0) + dv2_steps + dream_calls
+    rs.credit("skinny", B, H, T * dv2_steps, dv2_steps)
+    rs.credit("wide", T * B, H, H_imag * (dv2_steps + dream_calls), dv2_steps + dream_calls)
     (OUT_DIR / "tools_phase.json").write_text(json.dumps(out, indent=1))
     summary = dict(card=smi, seconds=out["seconds"], bench_steps_per_sec=out["bench"]["value"],
                    bench_gru_ms_per_step={x["gru_type"]: x["ms_per_step"] for x in gru_lines},
@@ -2086,12 +2315,12 @@ def tools_phase(torch, k1, report, path_launches, per_step, peaks, smi: str,
 DV3_IN, DV3_H = 1024, 4096  # K1's In and H in DreamerV3 XL (hidden_dim, deter_dim)
 
 
-def k1_backward_ms(torch, k1, M, In, H, gen, device, iters: int = 10) -> dict:
+def k1_backward_ms(M, In, H, gen, device, iters: int = 10) -> dict:
     """ms of a forward and backward (all six gradients) through K1's autograd
     function (the bf16 backward pass) and through the plain version, bf16
     operands, timed with CUDA events over ``iters`` calls after two warm ones
     (autograd's backward is not captured in a graph here)."""
-    ins = k1_inputs(torch, M, In, H, gen, device, torch.bfloat16)
+    ins = k1_inputs(M, In, H, gen, device, torch.bfloat16)
     proj = torch.randn(M, H, generator=gen, device=device)
 
     def run(fn):
@@ -2114,25 +2343,27 @@ def k1_backward_ms(torch, k1, M, In, H, gen, device, iters: int = 10) -> dict:
     return out
 
 
-def dv3_k1_phase(torch, k1, report, gen, device, peaks, unfused) -> list:
-    """18. K1 at DreamerV3 XL's shapes (the module docstring)."""
-    rows = []
+def dv3_k1_phase(rs: RunState) -> None:
+    """18. K1 at DreamerV3 XL's shapes (In=1024, H=4096, bf16): ``skinny`` at
+    M=16 (the posterior loop) and ``wide`` at M=1024 (the dream) against the
+    plain version, forward and six gradients, timed as in 2; then ms of a
+    forward and backward (K1's bf16 backward pass) through K1's autograd
+    function at both shapes beside the same through the plain version; then
+    ``bench_gru --cells dv3``, the tool's lines at the same two shapes."""
+    from pydreamer_tpu_torch.scripts import bench_gru
+
     for M, want in ((16, "skinny"), (1024, "wide")):
-        res = check_k1(torch, k1, M, DV3_IN, DV3_H, torch.bfloat16, want, gen, device, True,
-                       peaks, unfused)
-        res.update(k1_backward_ms(torch, k1, M, DV3_IN, DV3_H, gen, device))
+        res = check_k1(rs, M, DV3_IN, DV3_H, torch.bfloat16, want, timed=True)
+        res.update(k1_backward_ms(M, DV3_IN, DV3_H, rs.gen, rs.device))
         res["plan"] = vars(k1.plan(M, DV3_IN, DV3_H, torch.bfloat16))
-        report["k1"].append(res)
-        rows.append(res)
+        rs.report["k1"].append(res)
         print(f"[18] K1 {want} M={M} In={DV3_IN} H={DV3_H} bf16 {res['plan']}: {k1_summary(res)}; "
               f"forward+backward {res['k1_fwd_bwd_ms']:.3f} ms (plain "
               f"{res['plain_fwd_bwd_ms']:.3f})", flush=True)
-    from pydreamer_tpu_torch.scripts import bench_gru
     lines = bench_gru.main(["--cells", "dv3", "--warmup", "2", "--steps", "10"])
     if [line["schedule"] for line in lines] != ["skinny", "wide"]:
         raise AssertionError(f"[18] bench_gru --cells dv3: {lines}")
-    report["bench_gru_dv3"] = lines
-    return rows
+    rs.report["bench_gru_dv3"] = lines
 
 
 # Phase 20's shapes (M, In, H): the posterior loop's and the dream's at the
@@ -2158,12 +2389,25 @@ def k1_backward_bound_ms(M, In, H, peaks, needs) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def k1_backward_phase(torch, k1, report, gen, device, peaks) -> list:
-    """20. K1's backward, the bf16 pass (the module docstring)."""
+def k1_backward_phase(rs: RunState) -> None:
+    """20. K1's backward, the bf16 pass (``ops/gru_dv2.py::k1_backward``: the
+    forward's gate products recomputed, the LayerNorm/gate backward kernel,
+    three bf16 products with f32 sums), at the posterior loop's and the
+    dream's shapes (``BWD_SHAPES``); all six gradients, and at M > 64 also x
+    and h alone (the dream under ``actor_grad: dynamics``). Each gradient is
+    held to autograd through the plain version in float32 (the backward
+    before the bf16 pass) within ``BWD_WITNESS_FACTOR`` times the witness's
+    distance from it (``backward_witness``: the same float32 arithmetic with
+    dG rounded to bf16, the pass's one new rounding), or ``GRAD_TOL``, and
+    never more than ``BWD_LIMIT_CAP``. Timed (CUDA graphs, cold L2) beside
+    its bound (bytes at the card's bandwidth or bf16 operations at its tensor
+    rate) and the plain recompute's time. Its rows close the kernels line,
+    with the K1 backward calls that phases 4, 9 and 19b counted."""
+    gen, device, peaks = rs.gen, rs.device, rs.peaks
     flush_buf = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device=device)  # 128 MB > L2
     rows = []
     for M, In, H in BWD_SHAPES:
-        ins = k1_inputs(torch, M, In, H, gen, device, torch.bfloat16)
+        ins = k1_inputs(M, In, H, gen, device, torch.bfloat16)
         grad_out = torch.randn(M, H, generator=gen, device=device)
         res = dict(M=M, In=In, H=H, schedule=k1.plan(M, In, H, torch.bfloat16).schedule,
                    rows=k1.backward_rows(M), route=k1.backward_route(torch.bfloat16))
@@ -2175,7 +2419,7 @@ def k1_backward_phase(torch, k1, report, gen, device, peaks) -> list:
             wanted = [t for t in leaves if t.requires_grad]
             plain = torch.autograd.grad(k1.gru_dv2_reference(*leaves), wanted, grad_out)
             got = [g for g in k1.k1_backward(*ins, grad_out, needs) if g is not None]
-            witness = [g for g in backward_witness(torch, k1, ins, grad_out, needs) if g is not None]
+            witness = [g for g in backward_witness(ins, grad_out, needs) if g is not None]
             names = [n for n, need in zip(GRAD_NAMES, needs) if need]
             errs = {}
             for name, a, b, w in zip(names, got, plain, witness):
@@ -2190,10 +2434,10 @@ def k1_backward_phase(torch, k1, report, gen, device, peaks) -> list:
                                          f"{err} > {limit} (witness {wit})")
             res[f"grads_{label}"] = errs
             iters = 20 if H < 4096 else 10
-            res[f"ms_{label}"] = time_ms(torch, lambda: k1.k1_backward(*ins, grad_out, needs),
+            res[f"ms_{label}"] = time_ms(lambda: k1.k1_backward(*ins, grad_out, needs),
                                          iters, flush_buf.zero_)
             res[f"plain_ms_{label}"] = time_ms(
-                torch, lambda: torch.autograd.grad(k1.gru_dv2_reference(*leaves), wanted, grad_out),
+                lambda: torch.autograd.grad(k1.gru_dv2_reference(*leaves), wanted, grad_out),
                 iters, flush_buf.zero_)
             res[f"bound_ms_{label}"], res[f"bound_by_{label}"] = k1_backward_bound_ms(
                 M, In, H, peaks, needs)
@@ -2204,44 +2448,36 @@ def k1_backward_phase(torch, k1, report, gen, device, peaks) -> list:
                   f"{100 * bound / ms:.1f}%), plain recompute {res[f'plain_ms_{label}']:.5f} ms; "
                   f"grads err/limit {grads}", flush=True)
         rows.append(res)
-    report["k1_backward"] = rows
+    rs.report["k1_backward"] = rows
     (OUT_DIR / "k1_backward_phase.json").write_text(json.dumps(rows, indent=1))
-    return rows
-
-
-def dv3_conf():
-    """DreamerV3 XL as the normal path reads it: ``--configs defaults atari dreamerv3_xl``."""
-    from pydreamer_tpu_torch.conf import build_conf
-    return build_conf(str(Path(__file__).resolve().parent / "config"),
-                      ["defaults", "atari", "dreamerv3_xl"])
 
 
 DV3_LEARNER_STEPS = 60  # phase 19b: step 1 a log step (eager), step 2 the capture, then replays
 
 
-def dv3_learner_phase(torch, k1, report, path_launches, per_step, device) -> dict:
+def dv3_learner(rs: RunState) -> None:
     """19b. ``trainer.run`` on ``--configs defaults atari dreamerv3_xl`` from
-    episode files written from a seed: ``make_model`` builds DreamerV3 XL,
-    ``TrainStep`` replays its captured step; the share of calls replayed, K1's
-    launches on this path (counted into ``path_launches`` and ``per_step``
-    for the kernels line) and a checkpoint at the end."""
+    episode files written from a seed (60 steps): ``make_model`` builds
+    DreamerV3 XL, step 1 is a log step, step 2 captures, the rest replay (at
+    least 97% of the calls), K1 launches 64 ``skinny`` (M=16) and 15 ``wide``
+    (M=1024) a step, plus the log step's 63-step dream at M=16 (credited to
+    the kernels line's two DreamerV3 XL rows), 64 K1 backward calls a step at
+    M=16, all on the bf16 pass, and the checkpoint lands at step 60."""
     import shutil
 
-    import numpy as np
-
-    from pydreamer_tpu_torch.conf import Conf
     from pydreamer_tpu_torch.data import NpzEpisodeRepository
     from pydreamer_tpu_torch.tracing import COUNTERS
     from pydreamer_tpu_torch.tracking import load_checkpoint_file
     from pydreamer_tpu_torch.training import trainer
 
+    report, device = rs.report, rs.device
     t0 = time.perf_counter()
     d = dv3_conf()
-    episodes = Path(__file__).resolve().parent / "runs" / "chip_smoke_dv3_episodes"
-    run_dir = Path(__file__).resolve().parent / "runs" / "chip_smoke_dv3_learner"
+    episodes = ROOT / "runs" / "chip_smoke_dv3_episodes"
+    run_dir = ROOT / "runs" / "chip_smoke_dv3_learner"
     for path in (episodes, run_dir):
         shutil.rmtree(path, ignore_errors=True)
-    write_episodes(np, NpzEpisodeRepository(episodes), 4, 1000, d["action_dim"], seed=19)
+    write_episodes(NpzEpisodeRepository(episodes), 4, 1000, d["action_dim"], seed=19)
     d.update(offline_data_dir=str(episodes), generator_prefill_steps=0, data_workers=2,
              n_steps=DV3_LEARNER_STEPS, save_interval=DV3_LEARNER_STEPS, eval_interval=0)
     torch.cuda.empty_cache()
@@ -2268,15 +2504,12 @@ def dv3_learner_phase(torch, k1, report, path_launches, per_step, device) -> dic
             or sched != want or rows != {B: want["skinny"], T * B: want["wide"]}):
         raise AssertionError(f"[19b] {out}; expected K1 launches {want}")
     H = d["deter_dim"]
-    check_k1_backwards(k1, report, "19b", k1_backward_rows(
+    check_k1_backwards(report, "19b", k1_backward_rows(
         T, B, H_imag, d["actor_grad"] == "dynamics", n), H, n)
-    path_launches[("skinny", B, H)] = path_launches.get(("skinny", B, H), 0) + sched["skinny"]
-    path_launches[("wide", T * B, H)] = path_launches.get(("wide", T * B, H), 0) + sched["wide"]
-    per_step[(B, H)] = per_step.get((B, H), 0) + n
-    per_step[(T * B, H)] = per_step.get((T * B, H), 0) + n
+    rs.credit("skinny", B, H, sched["skinny"], n)
+    rs.credit("wide", T * B, H, sched["wide"], n)
     for path in (episodes, run_dir):
         shutil.rmtree(path, ignore_errors=True)
-    return out
 
 
 GRAPH_STEPS = 6      # steps a side in phase 17
@@ -2289,7 +2522,7 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cu
                 "cudaGraphLaunch")
 
 
-def profiled_step(torch, k1, ts, obs, state, step: int) -> dict:
+def profiled_step(ts, obs, state, step: int) -> dict:
     """One TrainStep call under torch.profiler: the union of its device
     activity (the spans' annotations left out), the host's launch calls, K1's
     kernel records by kind and its launches by the wrapper's count."""
@@ -2322,20 +2555,16 @@ def profiled_step(torch, k1, ts, obs, state, step: int) -> dict:
                 k1_launches=k1_launches, k1_kernels=sorted({n for *_, n in device if "k1::" in n}))
 
 
-def graph_phase(torch, k1, report, gen, device, configs=None, phase: str = "17",
-                key: str = "graphs") -> dict:
-    """17 (and 19). The step replayed from CUDA graphs against the eager step
-    (the module docstring), at ``configs`` ((label, conf dict) pairs; the
-    DreamerV2 widths by default). -> the phase's numbers, also in
-    ``report[key]``."""
-    from pydreamer_tpu_torch.conf import Conf
-    from pydreamer_tpu_torch.models.dreamer import Dreamer
+def graphs_vs_eager(rs: RunState, configs, phase: str, key: str) -> None:
+    """Phase 17's check (and 19's) at ``configs``, (label, conf dict) pairs;
+    its numbers go to ``report[key]``."""
     from pydreamer_tpu_torch.tracing import COUNTERS
-    from pydreamer_tpu_torch.training.train_step import METRICS, TrainStep
+    from pydreamer_tpu_torch.training.train_step import METRICS
 
+    report, gen, device = rs.report, rs.gen, rs.device
     t_phase = time.perf_counter()
     out = {}
-    for label, cfg in configs or (("atari_dv2", FLAGSHIP), ("dmc_dv2", DMC)):
+    for label, cfg in configs:
         conf = Conf(cfg)
         T, B, H_imag = conf.batch_length, conf.batch_size, conf.imag_horizon
         torch.manual_seed(17)
@@ -2343,7 +2572,7 @@ def graph_phase(torch, k1, report, gen, device, configs=None, phase: str = "17",
         models["eager"].load_state_dict(models["graphed"].state_dict())
         steps = {k: TrainStep(m, conf, device=device) for k, m in models.items()}
         steps["eager"].graphs = None
-        batches = [make_obs(torch, conf, gen, device) for _ in range(GRAPH_STEPS)]
+        batches = [make_obs(conf, gen, device) for _ in range(GRAPH_STEPS)]
         states = {k: m.init_state(B) for k, m in models.items()}
         counts0 = (COUNTERS.graph_captures, COUNTERS.graph_replays)
         torch.cuda.synchronize()
@@ -2359,7 +2588,7 @@ def graph_phase(torch, k1, report, gen, device, configs=None, phase: str = "17",
                 states[k], metrics, tensors, _ = steps[k](obs, states[k], step, seed=GRAPH_SEED,
                                                           **flags)
                 got[k] = (states[k], metrics, tensors)
-                check_k1_backwards(k1, report, f"{phase}] [{label} {k} step {step}", bwd_want,
+                check_k1_backwards(report, f"{phase}] [{label} {k} step {step}", bwd_want,
                                    conf.deter_dim, 1, credit=False)
             kept.append(got["graphed"])
             (sg, mg, _), (se, me, _) = got["graphed"], got["eager"]
@@ -2404,14 +2633,14 @@ def graph_phase(torch, k1, report, gen, device, configs=None, phase: str = "17",
               f"{GRAPH_ATOL}); capture {captured.seconds:.3f} s, {len(captured.segments)} "
               f"segments {out[label]['segments_by_span']}; peak mem {peak_gb:.2f} GB", flush=True)
         # A profiled replay and a profiled eager step, then both timed.
-        prof = {k: profiled_step(torch, k1, steps[k], batches[0], states[k], GRAPH_STEPS + 1)
+        prof = {k: profiled_step(steps[k], batches[0], states[k], GRAPH_STEPS + 1)
                 for k in ("graphed", "eager")}
         for k in prof:
             states[k] = prof[k].pop("state")
         busy = {k: prof[k]["busy_ms"] for k in prof}
         ms = {}
         for k in ("graphed", "eager"):
-            ms[k], states[k], _ = timed_steps(torch, steps[k], batches[1], states[k],
+            ms[k], states[k], _ = timed_steps(steps[k], batches[1], states[k],
                                               GRAPH_STEPS + 1, 5)
         out[label].update(profiled=prof, step_ms=ms)
         print(f"[{phase}] {label}: a profiled step, graphed / eager: launch calls "
@@ -2428,19 +2657,50 @@ def graph_phase(torch, k1, report, gen, device, configs=None, phase: str = "17",
     out["seconds"] = time.perf_counter() - t_phase
     report[key] = out
     print(f"[{phase}] phase {phase} took {out['seconds']:.1f} s")
-    return out
 
 
-def finish(torch, report, path_launches, per_step, smi: str, name: str) -> int:
-    """The kernels line (one entry per timed K1 row: its launches on the path
-    that runs its shape, per train step or acting call; then one per timed
+def graph_phase(rs: RunState) -> None:
+    """17. The train step replayed from CUDA graphs against the eager step, at
+    the ``atari_dv2`` and ``dmc_dv2`` widths (``flagship_conf``,
+    ``dmc_conf``): two models from the same weights, one ``TrainStep`` as it
+    runs (graphs) and one held eager, the same six batches and ``(seed,
+    step)``. The graphed run warms at step 1, captures at step 2 and replays
+    from then on, but for an eager log step (``do_image_pred``) at step 4,
+    which the eager run takes too. Per step the losses, the four gradient
+    norms, the out-state and every parameter are held to the eager run's
+    (``GRAPH_RTOL``, ``GRAPH_ATOL``; the largest differences are printed);
+    each call, replayed or eager, counts K1's backward calls of a step, all
+    on the bf16 pass (T at M=B, and H at M=T*B under ``actor_grad:
+    dynamics``); one capture; no returned tensor shares storage with another
+    step's; a profiled replay shows K1's kernels, T ``skinny`` and H ``wide``
+    launches credited, and device busy time within ``GRAPH_BUSY_RTOL`` of a
+    profiled eager step's. Prints the capture's seconds, the segments, the
+    host launch calls a step, ms a step either way, the peak memory and the
+    phase's seconds."""
+    graphs_vs_eager(rs, (("atari_dv2", flagship_conf()), ("dmc_dv2", dmc_conf())), "17", "graphs")
+
+
+def dv3_graph_phase(rs: RunState) -> None:
+    """19. The DreamerV3 XL step (``dv3_conf``) replayed from CUDA graphs
+    against the eager step, as 17 does at the DreamerV2 widths, with the
+    return statistics (``ac.retnorm.stats``) and the slow critic
+    (``ac.critic_target``) held too: the device state that each replay must
+    update in place. Every batch starts with a reset, so the learned initial
+    state enters each step. Then 19b (``dv3_learner``)."""
+    graphs_vs_eager(rs, (("atari_dv3_xl", dv3_conf()),), "19", "graphs_dv3")
+    dv3_learner(rs)
+
+
+def finish(rs: RunState, marks: list) -> int:
+    """The kernels line (one entry per timed K1 row: its launches on the paths
+    that ran its shape, per train step or acting call; then one per timed
     shape and gradient set of K1's backward, phase 20, with the calls that
-    phases 4, 9 and 19b counted), the nvidia-smi line and the last line."""
+    phases 4, 9 and 19b counted), the nvidia-smi line and the last line.
+    ``marks``: (phase, start time) in run order."""
+    report = rs.report
     kernels = []
     for r in report["k1"]:
-        n = path_launches.get((r["schedule"], r["M"], r["H"]), 0)
-        steps = per_step.get((r["M"], r["H"]) if r["dtype"] == "bfloat16"
-                             else (r["M"], r["H"], "float32"))
+        n, steps = rs.path.get((r["schedule"], r["M"], r["H"]), (0, 0))
         common = dict(route="cuda", source=K1_SOURCE, replaces=K1_REPLACES, bound_ms=r["bound_ms"],
                       bound_by=r["bound_by"], bound_route=r["bound_route"], plain_ms=r["plain_ms"],
                       library_ms=r["gemm_library_ms"], unfused_ms=r["unfused_ms"])
@@ -2470,436 +2730,75 @@ def finish(torch, report, path_launches, per_step, smi: str, name: str) -> int:
                 ms=r[f"ms_{label}"], route="cuda", source=K1_SOURCE, replaces=K1_BWD_REPLACES,
                 bound_ms=r[f"bound_ms_{label}"], bound_by=r[f"bound_by_{label}"],
                 plain_ms=r[f"plain_ms_{label}"]))
-    marks = sorted(report.pop("phase_start").items(), key=lambda kv: kv[1])
-    marks.append(("end", time.perf_counter()))
+    marks = [*marks, ("end", time.perf_counter())]
     report["phase_s"] = {str(a): b_t - a_t for (a, a_t), (_, b_t) in zip(marks, marks[1:])}
     print(f"[t] seconds by phase: { {k: round(v, 1) for k, v in report['phase_s'].items()} }; "
           f"total {marks[-1][1] - marks[0][1]:.1f}")
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
     print(json.dumps({"kernels": kernels}))
-    print(smi)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    print(rs.smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": rs.name,
                                              "count": torch.cuda.device_count()}}))
     return 0
 
 
+# The phases in run order, by number (the keys of ``report["phase_s"]``).
+PHASES = ((1, build_phase), (2, schedules_phase), (3, fused_forward_phase), (4, train_step_phase),
+          (5, profile_phase), (6, turns_phase), (7, acting_shapes_phase), (8, dmc_fused_phase),
+          (9, dmc_step_phase), (10, inference_phase), (11, learner_phase), (12, generator_phase),
+          (13, probe_phase), (14, mesh_phase), (15, learning_phase), (16, tools_phase),
+          (17, graph_phase), (18, dv3_k1_phase), (19, dv3_graph_phase), (20, k1_backward_phase))
+
+# What each flag runs instead: phase numbers, or (number, options) for a phase
+# that a flag runs with options.
+ONLY = {
+    "--learning-only": (1, 15),
+    "--tools-only": (1, (2, {"flagship_only": True}), (16, {"with_e2e": True})),
+    "--graph-only": (1, 17),
+    "--dv3-only": (1, 18, 19),
+    "--backward-only": (1, 20),
+}
+
+
+def plan(argv: list) -> list | None:
+    """(number, phase, options) in run order for ``argv``: every phase
+    without an argument, a flag's phases with one flag of ``ONLY``, None for
+    anything else."""
+    if not argv:
+        return [(n, phase, {}) for n, phase in PHASES]
+    if len(argv) != 1 or argv[0] not in ONLY:
+        return None
+    phases = dict(PHASES)
+    rows = [row if isinstance(row, tuple) else (row, {}) for row in ONLY[argv[0]]]
+    return [(n, phases[n], options) for n, options in rows]
+
+
+def usage() -> str:
+    """The usage line: each flag with the phases it runs."""
+    said = "; ".join(f"{flag}: phases " + ", ".join(
+        f"{n}" + (f" ({', '.join(options)})" if options else "") for n, _, options in plan([flag]))
+        for flag in ONLY)
+    return f"usage: chip_smoke.py [{' | '.join(ONLY)}]  ({said})"
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if argv not in ([], ["--learning-only"], ["--tools-only"], ["--graph-only"],
-                    ["--dv3-only"], ["--backward-only"]):
-        print("usage: chip_smoke.py [--learning-only | --tools-only | --graph-only | "
-              "--dv3-only | --backward-only]  (phases 1 and 15 alone; phases 1, 2 at the "
-              "flagship shapes, and 16 with bench_e2e; phases 1 and 17; phases 1, 18 and 19; "
-              "phases 1 and 20)", file=sys.stderr)
+    phases = plan(argv)
+    if phases is None:
+        print(usage(), file=sys.stderr)
         return 2
-    import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; it needs a CUDA card",
               file=sys.stderr)
         return 1
-    from pydreamer_tpu_torch.conf import Conf
-    from pydreamer_tpu_torch.models.dreamer import Dreamer
-    from pydreamer_tpu_torch.models.modules import layer_norm
-    from pydreamer_tpu_torch.models.noise import GeneratorNoise
-    from pydreamer_tpu_torch.models.rnn import make_gru_cell
-    from pydreamer_tpu_torch.ops import gru_dv2 as k1
-    from pydreamer_tpu_torch.training.train_step import TrainStep
-
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain version runs full f32
     torch.backends.cudnn.allow_tf32 = False
-    device = torch.device("cuda:0")
     OUT_DIR.mkdir(exist_ok=True)
-    report = {"phase_start": {}}
-
-    report["phase_start"][1] = time.perf_counter()
-    # 1. Build K1; the card's name and power limit.
-    t0 = time.time()
-    lib_path = k1.build()
-    report["build_s"] = time.time() - t0
-    ptxas = [ln for ln in lib_path.with_suffix(".log").read_text().splitlines()
-             if "registers" in ln or "spill" in ln or "smem" in ln]
-    print(f"[1] built {lib_path.name} in {report['build_s']:.1f} s", *ptxas, sep="\n    ")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    name = torch.cuda.get_device_name(0)
-    peak_key, peaks = peaks_for(name)
-    report.update(card=name, nvidia_smi=smi, peaks_of=peak_key, torch=torch.__version__,
-                  cuda=torch.version.cuda)
-    print(f"    card {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
-
-    report["phase_start"][2] = time.perf_counter()
-    # 2. Every K1 schedule against its plain version; times beside the yardsticks.
-    conf = Conf(FLAGSHIP)
-    T, B, H_imag = conf.batch_length, conf.batch_size, conf.imag_horizon
-    In, H = conf.hidden_dim, conf.deter_dim
-    gen = torch.Generator(device=device).manual_seed(0)
-    bf16, f32 = torch.bfloat16, torch.float32
-    unfused = unfused_cell(torch, layer_norm)
-    report["k1"] = []
-    if argv == ["--learning-only"]:
-        report["phase_start"][15] = report["phase_start"].pop(2)
-        path_launches, per_step = {}, {}
-        learning_phase(torch, k1, report, path_launches, per_step, gen, device, peaks, unfused)
-        return finish(torch, report, path_launches, per_step, smi, name)
-    if argv == ["--graph-only"]:
-        report["phase_start"][17] = report["phase_start"].pop(2)
-        graph_phase(torch, k1, report, gen, device)
-        return finish(torch, report, {}, {}, smi, name)
-    if argv == ["--dv3-only"]:
-        report["phase_start"][18] = report["phase_start"].pop(2)
-        dv3_k1_phase(torch, k1, report, gen, device, peaks, unfused)
-        report["phase_start"][19] = time.perf_counter()
-        graph_phase(torch, k1, report, gen, device, [("atari_dv3_xl", dv3_conf())], "19",
-                    "graphs_dv3")
-        path_launches, per_step = {}, {}
-        dv3_learner_phase(torch, k1, report, path_launches, per_step, device)
-        return finish(torch, report, path_launches, per_step, smi, name)
-    if argv == ["--backward-only"]:
-        report["phase_start"][20] = report["phase_start"].pop(2)
-        k1_backward_phase(torch, k1, report, gen, device, peaks)
-        return finish(torch, report, {}, {}, smi, name)
-    if argv == ["--tools-only"]:
-        for M, want in ((B, "skinny"), (T * B, "wide")):
-            res = check_k1(torch, k1, M, In, H, bf16, want, gen, device, True, peaks, unfused)
-            report["k1"].append(res)
-            print(f"[2] K1 {want} M={M} H={H} {res['dtype']}: {k1_summary(res)}")
-        report["phase_start"][16] = time.perf_counter()
-        path_launches, per_step = {}, {}
-        tools_phase(torch, k1, report, path_launches, per_step, peaks, smi, with_e2e=True)
-        return finish(torch, report, path_launches, per_step, smi, name)
-    for M, H_s, dtype, want in ((B, H, bf16, "skinny"), (T * B, H, bf16, "wide"),
-                                (B, 2048, bf16, "skinny"), (T * B, 2048, bf16, "wide"),
-                                (B, H, f32, "skinny_f32"), (T * B, H, f32, "wide_f32"),
-                                (B, 2048, f32, "skinny_f32"), (T * B, 2048, f32, "wide_f32")):
-        res = check_k1(torch, k1, M, In, H_s, dtype, want, gen, device, True, peaks, unfused)
-        report["k1"].append(res)
-        print(f"[2] K1 {want} M={M} H={H_s} {res['dtype']}: {k1_summary(res)}")
-    for M, In_s, H_s, dtype, want in ((5, 37, 50, bf16, "generic"), (70, 129, 67, bf16, "generic"),
-                                      (1, 8, 16, bf16, "generic"), (5, 37, 50, f32, "f32"),
-                                      (70, 129, 67, f32, "f32")):
-        res = check_k1(torch, k1, M, In_s, H_s, dtype, want, gen, device, False, peaks)
-        print(f"[2] K1 {want} M={M} In={In_s} H={H_s} {res['dtype']}: max_abs_err "
-              f"{res['max_abs_err']:.3e}, grads ok")
-    # The fused cell under precision: float32 runs K1's skinny_f32 schedule at M=B.
-    cell = make_gru_cell("gru_layernorm_dv2", In, H, dtype=f32).to(device)
-    x32, h32 = k1_inputs(torch, B, In, H, gen, device, f32)[:2]
-    k1.LAUNCHES.reset()
-    with torch.no_grad():
-        out32 = cell(x32, h32)
-        ref32 = k1.gru_dv2_reference(x32, h32, cell.weight_ih, cell.weight_hh, cell.ln_scale,
-                                     cell.ln_bias)
-    err32 = (out32 - ref32).abs().max().item()
-    report["f32_cell"] = dict(max_abs_err=err32, launches=dict(k1.LAUNCHES.by_schedule))
-    print(f"[2] gru_layernorm_dv2 cell in float32: {k1.LAUNCHES.by_schedule}, max_abs_err {err32:.3e}")
-    if (out32.dtype != f32 or k1.LAUNCHES.by_schedule != {"skinny_f32": 1}
-            or not err32 <= FWD_TOL_F32):
-        raise AssertionError(f"float32 cell: {out32.dtype}, {k1.LAUNCHES.by_schedule}, err {err32}")
-
-    report["phase_start"][3] = time.perf_counter()
-    # 3. Fused vs unfused cell through the full-width forward.
-    torch.manual_seed(0)
-    model = Dreamer(conf, device=device)
-    obs = make_obs(torch, conf, gen, device)
-    xla = Dreamer(conf.replace(gru_type="gru_layernorm_dv2_xla"), device=device)
-    xla.load_state_dict(unfused_state_dict(model.state_dict()))
-    with torch.no_grad():
-        lf, *_ = model.training_step(obs, model.init_state(B), GeneratorNoise(device, seed=7))
-        lx, *_ = xla.training_step(obs, xla.init_state(B), GeneratorNoise(device, seed=7))
-    cmp = {k: (lf[k].item(), lx[k].item()) for k in lf}
-    report["fused_vs_unfused"] = cmp
-    print("[3] fused vs unfused losses:", {k: f"{a:.5f}/{b:.5f}" for k, (a, b) in cmp.items()})
-    rel = abs(cmp["loss_model"][0] - cmp["loss_model"][1]) / abs(cmp["loss_model"][1])
-    if not rel <= LOSS_RTOL:
-        raise AssertionError(f"fused vs unfused loss_model rel diff {rel} > {LOSS_RTOL}")
-
-    report["phase_start"][4] = time.perf_counter()
-    # 4. The main path: full-width TrainStep, 2 warm-up + 5 timed steps.
-    ts = TrainStep(model, conf, device=device)
-    _, state, _ = timed_steps(torch, ts, obs, model.init_state(B), 0, 2)
-    torch.cuda.reset_peak_memory_stats()
-    n_steps = 5
-    k1.LAUNCHES.reset()
-    k1.K1_BACKWARDS.reset()
-    step_ms, state, metrics = timed_steps(torch, ts, obs, state, 2, n_steps)
-    launches, by_rows = k1.LAUNCHES.count, dict(k1.LAUNCHES.by_rows)
-    by_schedule = dict(k1.LAUNCHES.by_schedule)
-    step = 2 + n_steps
-    losses = {k: metrics[k].item() for k in ("loss_model", "loss_probe", "loss_actor", "loss_critic")}
-    report.update(step_ms=step_ms, launches=launches, launches_by_rows=by_rows,
-                  launches_by_schedule=by_schedule, losses=losses,
-                  metrics={k: v.item() for k, v in metrics.items()},
-                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    print(f"[4] train step: {step_ms:.2f} ms/step over {n_steps} steps, losses {losses}, "
-          f"K1 launches {launches} {by_rows} {by_schedule}, peak mem {report['peak_mem_gb']:.2f} GB")
-    if not all(math.isfinite(v) for v in losses.values()):
-        raise AssertionError(f"non-finite losses {losses}")
-    want = n_steps * (T + H_imag)
-    if (launches != want or by_rows != {B: n_steps * T, T * B: n_steps * H_imag}
-            or by_schedule != {"skinny": n_steps * T, "wide": n_steps * H_imag}):
-        raise AssertionError(f"K1 launches {launches} {by_rows} {by_schedule}, expected {want}: "
-                             f"{n_steps * T} skinny and {n_steps * H_imag} wide")
-    check_k1_backwards(k1, report, "4", k1_backward_rows(
-        T, B, H_imag, conf.actor_grad == "dynamics", n_steps), H, n_steps)
-    if tuple(state[0].shape) != (B, H) or not torch.isfinite(state[0]).all():
-        raise AssertionError("out_state h is not finite of shape (B, deter)")
-
-    report["phase_start"][5] = time.perf_counter()
-    # 5. Profile one step.
-    state, prof5, events = profile_step(ts, obs, state, step + 1)
-    report["profile"] = prof5
-    table = events.table(sort_by="self_device_time_total", row_limit=30)
-    print(f"[5] profiled step: wall {prof5['wall_ms']:.2f} ms, device busy "
-          f"{prof5['device_busy_ms']:.2f} ms; K1 {prof5['k1_ms']:.3f} ms in {prof5['k1_kernels']}; "
-          f"launched {prof5['launched']}, recorded {prof5['k1_launches']}")
-    check_profiled_k1(prof5, T, H_imag, "[5] profiled step")
-    step += 1
-
-    report["phase_start"][6] = time.perf_counter()
-    # 6. Step time with the K1 cell against the unfused cell, in turns
-    #    (unfused, K1, K1, unfused), 5 steps per window after 2 warm-up steps.
-    ts_xla = TrainStep(xla, conf, device=device)
-    _, state_xla, _ = timed_steps(torch, ts_xla, obs, xla.init_state(B), 0, 2)
-    windows = {"unfused": [], "k1": []}
-    for variant in ("unfused", "k1", "k1", "unfused"):
-        if variant == "k1":
-            ms, state, _ = timed_steps(torch, ts, obs, state, step, n_steps)
-            step += n_steps
-        else:
-            ms, state_xla, _ = timed_steps(torch, ts_xla, obs, state_xla, 2 + len(windows["unfused"]) * n_steps, n_steps)
-        windows[variant].append(ms)
-    report["step_ms_ab"] = windows
-    print(f"[6] ms/step in turns: K1 cell {windows['k1']}, unfused cell {windows['unfused']}")
-
-    path_launches = {("skinny", B, H): by_schedule.get("skinny", 0),
-                     ("wide", T * B, H): by_schedule.get("wide", 0)}  # phase 4, flagship
-    del model, xla, ts, ts_xla, state, state_xla
-    torch.cuda.empty_cache()
-
-    report["phase_start"][7] = time.perf_counter()
-    # 7. Inference shapes: skinny at M=1 and M=8, H=2048, against its plain version.
-    for M in (1, 8):
-        res = check_k1(torch, k1, M, In, 2048, bf16, "skinny", gen, device, True, peaks, unfused)
-        report["k1"].append(res)
-        print(f"[7] K1 skinny M={M} H=2048: {k1_summary(res)}")
-
-    report["phase_start"][8] = time.perf_counter()
-    # 8. The DMC path: one forward and backward with the K1 cell and with the
-    #    unfused cell, same weights, same noise.
-    dconf = Conf(DMC)
-    Hd, A = dconf.deter_dim, dconf.action_dim
-    torch.manual_seed(1)
-    dmodel = Dreamer(dconf, device=device)
-    dxla = Dreamer(dconf.replace(gru_type="gru_layernorm_dv2_xla"), device=device)
-    dxla.load_state_dict(unfused_state_dict(dmodel.state_dict()))
-    dobs = make_obs(torch, dconf, gen, device)
-    cmp8 = {}
-    for tag, m in (("k1", dmodel), ("unfused", dxla)):
-        k1.LAUNCHES.reset()
-        losses, *_ = m.training_step(dobs, m.init_state(B), GeneratorNoise(device, seed=8))
-        sum(losses.values()).backward()
-        torch.cuda.synchronize()
-        cmp8[tag] = dict({k: v.item() for k, v in losses.items()},
-                         grad_norm_actor=actor_grad_norm(torch, m),
-                         launches=dict(k1.LAUNCHES.by_schedule))
-        m.zero_grad(set_to_none=True)
-    report["dmc_fused_vs_unfused"] = cmp8
-    print("[8] DMC fused vs unfused:", {k: f"{cmp8['k1'][k]:.5f}/{cmp8['unfused'][k]:.5f}"
-                                        for k in cmp8["k1"] if k != "launches"},
-          "K1 launches", cmp8["k1"]["launches"])
-    if cmp8["k1"]["launches"] != {"skinny": T, "wide": H_imag} or cmp8["unfused"]["launches"]:
-        raise AssertionError(f"phase 8 K1 launches {cmp8['k1']['launches']} / "
-                             f"{cmp8['unfused']['launches']}, expected {T} skinny + {H_imag} wide / none")
-    for k, rtol in (("loss_model", LOSS_RTOL), ("loss_probe", LOSS_RTOL),
-                    ("loss_actor", AC_LOSS_RTOL), ("loss_critic", AC_LOSS_RTOL)):
-        a, b = cmp8["k1"][k], cmp8["unfused"][k]
-        if not abs(a - b) <= rtol * max(abs(a), abs(b)) + LOSS_ATOL:
-            raise AssertionError(f"DMC fused vs unfused {k}: {a} vs {b}")
-    a, b = cmp8["k1"]["grad_norm_actor"], cmp8["unfused"]["grad_norm_actor"]
-    if not (math.isfinite(a) and a > 0 and abs(a - b) <= GRAD_NORM_RTOL * b):
-        raise AssertionError(f"DMC fused vs unfused actor gradient norm: {a} vs {b}")
-    del dxla
-    torch.cuda.empty_cache()
-
-    report["phase_start"][9] = time.perf_counter()
-    # 9. Drive the DMC train step: 2 warm-up + 5 timed steps.
-    dts = TrainStep(dmodel, dconf, device=device)
-    _, dstate, _ = timed_steps(torch, dts, dobs, dmodel.init_state(B), 0, 2)
-    torch.cuda.reset_peak_memory_stats()
-    k1.LAUNCHES.reset()
-    k1.K1_BACKWARDS.reset()
-    dstep_ms, dstate, dmetrics = timed_steps(torch, dts, dobs, dstate, 2, n_steps)
-    d_rows, d_sched = dict(k1.LAUNCHES.by_rows), dict(k1.LAUNCHES.by_schedule)
-    dstep = 2 + n_steps
-    dlosses = {k: dmetrics[k].item() for k in ("loss_model", "loss_probe", "loss_actor", "loss_critic")}
-    gna = dmetrics["grad_norm_actor"].item()
-    report["dmc"] = dict(step_ms=dstep_ms, launches_by_rows=d_rows, launches_by_schedule=d_sched,
-                         losses=dlosses, metrics={k: v.item() for k, v in dmetrics.items()},
-                         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    print(f"[9] DMC train step: {dstep_ms:.2f} ms/step over {n_steps} steps, losses {dlosses}, "
-          f"grad_norm_actor {gna:.5g}, K1 launches {d_rows} {d_sched}, "
-          f"peak mem {report['dmc']['peak_mem_gb']:.2f} GB")
-    if d_rows != {B: n_steps * T, T * B: n_steps * H_imag} or \
-            d_sched != {"skinny": n_steps * T, "wide": n_steps * H_imag}:
-        raise AssertionError(f"DMC K1 launches {d_rows} {d_sched}, expected {n_steps * T} skinny "
-                             f"[M={B}] and {n_steps * H_imag} wide [M={T * B}], no generic")
-    if not all(math.isfinite(v) for v in dlosses.values()) or not (math.isfinite(gna) and gna > 0):
-        raise AssertionError(f"DMC step: losses {dlosses}, grad_norm_actor {gna}")
-    path_launches.update({("skinny", B, Hd): d_sched["skinny"], ("wide", T * B, Hd): d_sched["wide"]})
-    check_k1_backwards(k1, report, "9", k1_backward_rows(
-        T, B, H_imag, dconf.actor_grad == "dynamics", n_steps), Hd, n_steps)
-
-    # The actor loss alone reaches the actor and leaves the world model alone.
-    dmodel.zero_grad(set_to_none=True)  # TrainStep leaves its step's gradients behind
-    losses, *_ = dmodel.training_step(dobs, dstate, GeneratorNoise(device, seed=9))
-    losses["loss_actor"].backward()
-    leaked = [n for n, p in dmodel.wm.named_parameters() if p.grad is not None and p.grad.any()]
-    only_actor = actor_grad_norm(torch, dmodel)
-    dmodel.zero_grad(set_to_none=True)
-    report["dmc"]["actor_loss_only"] = dict(wm_params_with_grad=leaked, grad_norm_actor=only_actor)
-    print(f"[9] actor loss alone: actor grad norm {only_actor:.5g}, wm parameters with a "
-          f"gradient: {leaked}")
-    if leaked or not only_actor > 0:
-        raise AssertionError(f"actor loss alone: wm gradients {leaked}, actor norm {only_actor}")
-
-    # One log step with both flags.
-    k1.LAUNCHES.reset()
-    t0 = time.perf_counter()
-    dstate, lmetrics, _, dream = dts(dobs, dstate, dstep + 1, do_image_pred=True,
-                                     do_dream_tensors=True)
-    torch.cuda.synchronize()
-    log_ms = (time.perf_counter() - t0) * 1e3
-    dstep += 1
-    l_rows, l_sched = dict(k1.LAUNCHES.by_rows), dict(k1.LAUNCHES.by_schedule)
-    shapes = {k: tuple(v.shape) for k, v in dream.items()}
-    report["dmc"]["log_step"] = dict(ms=log_ms, launches_by_rows=l_rows, launches_by_schedule=l_sched,
-                                     dream_shapes=shapes,
-                                     logprob={k: v.item() for k, v in lmetrics.items()
-                                              if k.startswith("logprob_")})
-    print(f"[9] log step: {log_ms:.2f} ms, K1 launches {l_rows} {l_sched}, dream tensors {shapes}")
-    if l_sched != {"skinny": 2 * T - 1, "wide": H_imag} or l_rows != {B: 2 * T - 1, T * B: H_imag}:
-        raise AssertionError(f"log step K1 launches {l_rows} {l_sched}, expected {T}+{T - 1} "
-                             f"skinny and {H_imag} wide")
-    if shapes.get("image_pred") != (T, B, 64, 64, 3) or shapes.get("action_pred") != (T, B, A):
-        raise AssertionError(f"dream tensor shapes {shapes}")
-    if not all(torch.isfinite(v).all() for v in dream.values()) or \
-            not all(math.isfinite(v.item()) for v in lmetrics.values()):
-        raise AssertionError("log step: non-finite dream tensors or metrics")
-
-    # Profile one step.
-    dstate, prof9, events9 = profile_step(dts, dobs, dstate, dstep + 1)
-    dstep += 1
-    report["dmc"]["profile"] = prof9
-    print(f"[9] profiled DMC step: wall {prof9['wall_ms']:.2f} ms, device busy "
-          f"{prof9['device_busy_ms']:.2f} ms; K1 {prof9['k1_ms']:.3f} ms {prof9['k1_ms_by_kernel']}; "
-          f"f32 GEMMs {prof9['f32_gemm_ms']:.3f} ms in "
-          f"{prof9['f32_gemm_calls']} calls; K1 launched {prof9['launched']}, recorded "
-          f"{prof9['k1_launches']}")
-    check_profiled_k1(prof9, T, H_imag, "[9] profiled DMC step")
-    (OUT_DIR / "chip_smoke_profile.txt").write_text(
-        f"{smi}\n[5] flagship step\n{table}\n[9] DMC step\n"
-        f"{events9.table(sort_by='self_device_time_total', row_limit=40)}\n")
-
-    report["phase_start"][10] = time.perf_counter()
-    # 10. Dreamer.inference on the DMC model, the generators' acting step.
-    report["inference"] = {}
-    n_calls = 50
-    for Bi in (1, 8):
-        iobs = make_obs(torch, dconf, gen, device, T=1, B=Bi)
-        istate, inoise = dmodel.init_state(Bi), GeneratorNoise(device, seed=10)
-        for _ in range(3):
-            action, istate, imetrics = dmodel.inference(iobs, istate, inoise)
-        iobs["reset"][:] = False
-        torch.cuda.synchronize()
-        k1.LAUNCHES.reset()
-        t0 = time.perf_counter()
-        for _ in range(n_calls):
-            action, istate, imetrics = dmodel.inference(iobs, istate, inoise)
-            action_host = action.cpu()  # the generator steps its envs with it
-        call_us_i = (time.perf_counter() - t0) / n_calls * 1e6
-        i_rows, i_sched = dict(k1.LAUNCHES.by_rows), dict(k1.LAUNCHES.by_schedule)
-        report["inference"][Bi] = dict(us_per_call=call_us_i, launches_by_rows=i_rows,
-                                       launches_by_schedule=i_sched,
-                                       metrics={k: v.tolist() for k, v in imetrics.items()})
-        print(f"[10] inference B={Bi}: {call_us_i:.1f} us/call (host clock, action to host), "
-              f"K1 launches {i_rows} {i_sched}")
-        if i_sched != {"skinny": n_calls} or i_rows != {Bi: n_calls}:
-            raise AssertionError(f"inference B={Bi}: K1 launches {i_rows} {i_sched}, expected "
-                                 f"{n_calls} skinny [M={Bi}]")
-        if (tuple(action_host.shape) != (1, Bi, A) or not torch.isfinite(action_host).all()
-                or action_host.abs().max() > 1.0):
-            raise AssertionError(f"inference B={Bi}: action {action_host}")
-        if not all(tuple(v.shape) == (Bi,) and torch.isfinite(v).all() for v in imetrics.values()):
-            raise AssertionError(f"inference B={Bi}: metrics {imetrics}")
-        path_launches[("skinny", Bi, Hd)] = n_calls
-    del dmodel, dts, dstate, dobs
-    torch.cuda.empty_cache()
-
-    report["phase_start"][11] = time.perf_counter()
-    # 11. The learner loop: trainer.run on the flagship model from episode files.
-    n_test_calls = learner_phase(torch, k1, conf, report, path_launches, gen, device, peaks,
-                                 unfused)
-
-    report["phase_start"][12] = time.perf_counter()
-    # 12. The actors: K1 at the flagship's acting shapes, the generator on the
-    #     card, the launcher feeding the learner from live generators.
-    acting_calls = generator_phase(torch, k1, conf, report, path_launches, gen, device, peaks,
-                                   unfused)
-
-    report["phase_start"][13] = time.perf_counter()
-    # 13. The probes and the baselines at the MiniWorld width.
-    probe_launches, probe_calls = probe_phase(torch, k1, report, gen, device)
-    for key, n in probe_launches.items():
-        path_launches[key] += n
-
-    report["phase_start"][14] = time.perf_counter()
-    # 14. The learner on a mesh: NCCL at world size 1, two data ranks, two
-    #     model ranks.
-    mesh_steps = mesh_phase(torch, k1, conf, report, path_launches, gen, device, peaks, unfused)
-
-    # Launches by shape on each path: flagship (phase 4, 5 steps), DMC (phase
-    # 9, 5 steps) with the MiniWorld probes (phase 13, a step and an eval
-    # call), inference (phase 10, 50 calls), the learner's test protocol
-    # (phase 11, per eval call), the generator's acting calls (phase 12) and
-    # the mesh's rank-steps (phase 14: data ranks at M=16 / M=768, model ranks
-    # at the flagship shapes); 0 where no path runs it.
-    per_step = {(B, H): n_steps + mesh_steps["tp_rank_steps"],
-                (T * B, H): n_steps + mesh_steps["tp_rank_steps"],
-                (B // 2, H): mesh_steps["dp_rank_steps"],
-                (T * B // 2, H): mesh_steps["dp_rank_steps"], (B, Hd): n_steps + probe_calls,
-                (T * B, Hd): n_steps + probe_calls,
-                (1, Hd): n_calls, (8, Hd): n_calls,
-                (LEARNER["test_batch_size"], H): n_test_calls,
-                (T * LEARNER["test_batch_size"], H): n_test_calls,
-                (1, H): acting_calls[1], (8, H): acting_calls[8],
-                (B, H, "float32"): mesh_steps["f32_steps"],
-                (T * B, H, "float32"): mesh_steps["f32_steps"],
-                (B // 2, H, "float32"): mesh_steps["dp_rank_steps"],
-                (T * B // 2, H, "float32"): mesh_steps["dp_rank_steps"]}
-    report["phase_start"][15] = time.perf_counter()
-    # 15. Learning on the card: K1 at the new shapes, the canaries through K1,
-    #     the live GridWorld run and the run tools.
-    learning_phase(torch, k1, report, path_launches, per_step, gen, device, peaks, unfused)
-
-    report["phase_start"][16] = time.perf_counter()
-    # 16. The measurement tools at the flagship width (bench_e2e under --tools-only).
-    tools_phase(torch, k1, report, path_launches, per_step, peaks, smi, with_e2e=False)
-
-    report["phase_start"][17] = time.perf_counter()
-    # 17. The step replayed from CUDA graphs against the eager step.
-    graph_phase(torch, k1, report, gen, device)
-
-    report["phase_start"][18] = time.perf_counter()
-    # 18. K1 at DreamerV3 XL's shapes; 19. its step, graphed against eager.
-    dv3_k1_phase(torch, k1, report, gen, device, peaks, unfused)
-    report["phase_start"][19] = time.perf_counter()
-    graph_phase(torch, k1, report, gen, device, [("atari_dv3_xl", dv3_conf())], "19",
-                "graphs_dv3")
-    dv3_learner_phase(torch, k1, report, path_launches, per_step, device)
-
-    report["phase_start"][20] = time.perf_counter()
-    # 20. K1's backward: the bf16 pass against the float32 recompute.
-    k1_backward_phase(torch, k1, report, gen, device, peaks)
-    return finish(torch, report, path_launches, per_step, smi, name)
+    rs, marks = RunState(), []
+    for n, phase, options in phases:
+        marks.append((n, time.perf_counter()))
+        phase(rs, **options)
+    return finish(rs, marks)
 
 
 if __name__ == "__main__":
