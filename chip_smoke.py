@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``pydreamer_tpu_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py [--learning-only | --tools-only | --graph-only | --dv3-only | --backward-only]
+    python3 chip_smoke.py [--learning-only | --tools-only | --graph-only | --dv3-only |
+                           --backward-only | --copies-only]
 
 Runs the phases of ``PHASES`` in order, or with a flag the phases that
 ``ONLY`` lists for it. Each phase is a function whose docstring says what it
@@ -21,8 +22,9 @@ shape and gradient set of phase 20, its calls counted in phases 4, 9 and
 (phase 12's launcher run), ``chiprun_out/probe_phase.json`` (phase 13),
 ``chiprun_out/phase14_*_rank*.json`` (phase 14's ranks),
 ``chiprun_out/live_log.txt`` and ``chiprun_out/live_run/`` (phase 15c),
-``chiprun_out/tools_phase.json`` (phase 16) and
-``chiprun_out/k1_backward_phase.json`` (phase 20); phase 11's episode files
+``chiprun_out/tools_phase.json`` (phase 16),
+``chiprun_out/k1_backward_phase.json`` (phase 20) and ``chip_smoke.json``'s
+``copies`` (phase 21); phase 11's episode files
 stay in ``chiprun_out/learner_episodes/`` and the run directories (under
 ``runs/``, git-ignored) are removed at the end.
 This script imports nothing of JAX or of the JAX package; its presets are
@@ -2691,11 +2693,189 @@ def dv3_graph_phase(rs: RunState) -> None:
     dv3_learner(rs)
 
 
+COPY_SEED = 2 ** 33 + 21
+ACC_SHAPES = ((4096, 12288), (1000, 1000))  # DreamerV3 XL's W_hh; a DreamerV2 1000-wide Dense
+ACC_SOURCE = "pydreamer_tpu_torch/ops/csrc/accumulate.cu"
+
+
+def per_call_grads(model, obs, state, step: int) -> dict:
+    """The per-call path's gradients by leaf name: ``training_step`` and
+    ``backward()`` outside a ``TrainStep`` update, so that each use casts its
+    weight itself, on ``TrainStep``'s own noise of ``(COPY_SEED, step)``."""
+    from pydreamer_tpu_torch.training.train_step import noise_seed
+
+    model.zero_grad(set_to_none=True)
+    losses, *_ = model.training_step(obs, state, GeneratorNoise(
+        model.device, seed=noise_seed(COPY_SEED, step)))
+    sum(losses.values()).backward()
+    return {n: p.grad if p.grad is not None else torch.zeros_like(p)
+            for n, p in model.named_parameters() if p.requires_grad}
+
+
+def check_accumulate(rs: RunState, acc, g, what: str) -> None:
+    """``accumulate_``, the wrapper the path runs, against torch's ``add_``:
+    equal."""
+    from pydreamer_tpu_torch.ops.accumulate import accumulate_
+
+    want, got = acc.clone().add_(g), acc.clone()
+    accumulate_(got, g)
+    if not torch.equal(got, want):
+        raise AssertionError(f"[21] accumulate at {what}: {(got - want).abs().max().item()} "
+                             f"off torch's add_")
+
+
+def leaf_accumulates(rs: RunState, leaves) -> dict:
+    """``check_accumulate`` at the shape of every leaf the step copies (the
+    shapes the path accumulates into: biases, convs, LayerNorms' affine
+    maps, Dense and GRU weights), and at the first 2-D one with a transposed
+    addend (the wrapper's copy to a dense one). Returns the shapes checked
+    and how many of them end in a tail of n % 8 elements."""
+    shapes = sorted({tuple(p.shape) for p in leaves})
+    for shape in shapes:
+        acc = torch.randn(shape, generator=rs.gen, device=rs.device)
+        check_accumulate(rs, acc, torch.randn(shape, generator=rs.gen, device=rs.device)
+                         .bfloat16(), str(shape))
+    rows, cols = next(shape for shape in shapes if len(shape) == 2)
+    acc = torch.randn(rows, cols, generator=rs.gen, device=rs.device)
+    check_accumulate(rs, acc, torch.randn(cols, rows, generator=rs.gen, device=rs.device)
+                     .bfloat16().t(), f"{(rows, cols)}, addend transposed")
+    return dict(shapes=len(shapes), tail_shapes=sum(math.prod(s) % 8 != 0 for s in shapes))
+
+
+def path_accumulate_ms(rs: RunState, by_numel: dict) -> dict:
+    """One step's accumulations as the path makes them (``ACCUMULATES.by_numel``
+    of one step: that many launches at each size), timed in one graph with the
+    kernel and with torch's mixed-dtype ``add_`` (L2 not flushed between
+    launches), and their bound: 10 bytes an element at the card's HBM peak."""
+    from pydreamer_tpu_torch.ops.accumulate import ACCUMULATES, accumulate_
+
+    device = rs.device
+    bufs = [(torch.randn(n, generator=rs.gen, device=device),
+             torch.randn(n, generator=rs.gen, device=device).bfloat16(), count)
+            for n, count in sorted(by_numel.items())]
+
+    def run(add):
+        for acc, g, count in bufs:
+            for _ in range(count):
+                add(acc, g)
+
+    ms = time_ms(lambda: run(accumulate_), 2)
+    plain_ms = time_ms(lambda: run(lambda acc, g: acc.add_(g)), 2)
+    ACCUMULATES.reset()
+    nbytes = 10 * sum(n * count for n, count in by_numel.items())
+    del bufs
+    torch.cuda.empty_cache()
+    return dict(ms=ms, plain_ms=plain_ms, bytes=nbytes, bound_ms=nbytes / rs.peaks[0] * 1e3)
+
+
+def accumulate_rows(rs: RunState) -> list:
+    """The accumulate kernel at ``ACC_SHAPES``: the wrapper's sums against
+    torch's mixed-dtype ``add_`` (equal), both timed (L2 flushed before each
+    call), GB/s at 10 bytes an element against the card's HBM peak."""
+    from pydreamer_tpu_torch.ops.accumulate import accumulate_
+
+    device, gen, bw = rs.device, rs.gen, rs.peaks[0]
+    flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device=device).zero_
+    rows = []
+    for shape in ACC_SHAPES:
+        acc = torch.randn(shape, generator=gen, device=device)
+        g = torch.randn(shape, generator=gen, device=device).bfloat16()
+        check_accumulate(rs, acc, g, str(shape))
+        nbytes = 10 * acc.numel()
+        row = dict(shape=list(shape), bytes=nbytes)
+        for name, fn in (("kernel", lambda: accumulate_(acc, g)),
+                         ("torch_add", lambda: acc.add_(g))):
+            ms = time_ms(fn, 20, flush)
+            row[f"{name}_ms"], row[f"{name}_gbps"] = ms, nbytes / ms / 1e6
+            row[f"{name}_of_hbm"] = nbytes / (ms * 1e-3) / bw
+        row["bound_ms"] = nbytes / bw * 1e3
+        rows.append(row)
+        print(f"[21] accumulate {shape}: kernel {row['kernel_ms']:.4f} ms, "
+              f"{row['kernel_gbps']:.0f} GB/s ({100 * row['kernel_of_hbm']:.1f}% of "
+              f"{bw / 1e12:.2f} TB/s); torch add_ {row['torch_add_ms']:.4f} ms, "
+              f"{row['torch_add_gbps']:.0f} GB/s ({100 * row['torch_add_of_hbm']:.1f}%)",
+              flush=True)
+    return rows
+
+
+def copies_phase(rs: RunState) -> None:
+    """21. The step's weight copies (``models/modules.py`` ``WeightCopies``,
+    ``CopyUse``) at the three cells' widths (``flagship_conf``, ``dmc_conf``,
+    ``dv3_conf``): two models from the same weights; one trains through its
+    ``TrainStep`` as it runs, with the clip off (an infinite max norm, so
+    ``.grad`` is what ``backward()`` left), eager at step 1 (the copies made),
+    captured and replayed at step 2, replayed at 3; before each step the
+    other takes its weights and runs the per-call path (``per_call_grads``).
+    Every leaf's gradient is held equal (``torch.equal``) after each step;
+    each step counts one cast per copy, no per-call cast, and the same
+    accumulate launches (``ACCUMULATES``, at most one a use). Then the
+    wrapper against ``add_`` at every leaf's shape (``leaf_accumulates``),
+    one step's accumulations timed (``path_accumulate_ms``), and the kernel
+    at ``ACC_SHAPES`` (``accumulate_rows``)."""
+    from pydreamer_tpu_torch.ops.accumulate import ACCUMULATES
+    from pydreamer_tpu_torch.tracing import COUNTERS
+
+    device, out = rs.device, {}
+    for label, cfg in (("atari_dv2", flagship_conf()), ("dmc_dv2", dmc_conf()),
+                       ("atari_dv3_xl", dv3_conf())):
+        conf = Conf(cfg)
+        torch.manual_seed(21)
+        model, ref = Dreamer(conf, device=device), Dreamer(conf, device=device)
+        ts = TrainStep(model, conf, device=device)
+        ts.clips = {k: math.inf for k in ts.clips}
+        obs = make_obs(conf, rs.gen, device)
+        rows = []
+        for step in (1, 2, 3):
+            ref.load_state_dict(model.state_dict())
+            state = model.init_state(conf.batch_size)
+            want = per_call_grads(ref, obs, state, step)
+            before = (COUNTERS.graph_captures, COUNTERS.graph_replays)
+            COUNTERS.weight_casts = COUNTERS.weight_copies = COUNTERS.weight_copy_uses = 0
+            ACCUMULATES.reset()
+            ts(obs, state, step, seed=COPY_SEED)
+            torch.cuda.synchronize()
+            how = {(0, 0): "eager", (1, 1): "capture+replay", (0, 1): "replay"}[
+                (COUNTERS.graph_captures - before[0], COUNTERS.graph_replays - before[1])]
+            differ = [n for n, p in model.named_parameters()
+                      if p.requires_grad and not torch.equal(p.grad, want[n])]
+            row = dict(step=step, how=how, casts=COUNTERS.weight_casts,
+                       copies=COUNTERS.weight_copies, uses=COUNTERS.weight_copy_uses,
+                       leaves=len(ts.copies), accumulates=ACCUMULATES.count,
+                       by_numel=dict(ACCUMULATES.by_numel), differ=differ)
+            rows.append(row)
+            if (differ or not row["casts"] == row["copies"] == row["leaves"] > 0
+                    or not 0 < row["accumulates"] <= row["uses"]
+                    or (row["accumulates"], row["by_numel"]) != (rows[0]["accumulates"],
+                                                                 rows[0]["by_numel"])):
+                raise AssertionError(f"[21] {label} step {step} ({how}): {row}")
+        if [r["how"] for r in rows] != ["eager", "capture+replay", "replay"]:
+            raise AssertionError(f"[21] {label}: steps ran {[r['how'] for r in rows]}")
+        leaves = leaf_accumulates(rs, ts.copies.copies)
+        timed = path_accumulate_ms(rs, rows[0]["by_numel"])
+        out[label] = dict(steps=rows, leaf_shapes=leaves, step_accumulates=timed)
+        print(f"[21] {label}: gradients equal to the per-call path's after an eager step, a "
+              f"capture + replay and a replay; {rows[0]['leaves']} copies, "
+              f"{rows[0]['uses']} uses and {rows[0]['accumulates']} accumulate launches a step; "
+              f"the wrapper equal to add_ at {leaves['shapes']} leaf shapes "
+              f"({leaves['tail_shapes']} with a tail); one step's accumulations "
+              f"{timed['ms']:.3f} ms (add_ {timed['plain_ms']:.3f} ms, bound "
+              f"{timed['bound_ms']:.3f} ms)", flush=True)
+        del model, ref, ts
+        torch.cuda.empty_cache()
+    if not any(out[label]["leaf_shapes"]["tail_shapes"] for label in out):
+        raise AssertionError("[21] no leaf shape has a tail of n % 8 elements")
+    out["accumulate"] = accumulate_rows(rs)
+    rs.report["copies"] = out
+
+
 def finish(rs: RunState, marks: list) -> int:
     """The kernels line (one entry per timed K1 row: its launches on the paths
     that ran its shape, per train step or acting call; then one per timed
     shape and gradient set of K1's backward, phase 20, with the calls that
-    phases 4, 9 and 19b counted), the nvidia-smi line and the last line.
+    phases 4, 9 and 19b counted; then the accumulate kernel's, phase 21: one
+    step's launches at each preset, and the two timed shapes, with the
+    launches phase 21's steps made at their size), the nvidia-smi line and
+    the last line.
     ``marks``: (phase, start time) in run order."""
     report = rs.report
     kernels = []
@@ -2730,6 +2910,26 @@ def finish(rs: RunState, marks: list) -> int:
                 ms=r[f"ms_{label}"], route="cuda", source=K1_SOURCE, replaces=K1_BWD_REPLACES,
                 bound_ms=r[f"bound_ms_{label}"], bound_by=r[f"bound_by_{label}"],
                 plain_ms=r[f"plain_ms_{label}"]))
+    copies = report.get("copies", {})
+    for label, r in copies.items():  # one step's accumulations at each preset, phase 21
+        if label != "accumulate":
+            steps = r["steps"]
+            kernels.append(dict(
+                name=f"accumulate.add_bf16_into_f32[{label},step]",
+                launches=sum(s["accumulates"] for s in steps),
+                launches_per_step=steps[0]["accumulates"], ms=r["step_accumulates"]["ms"],
+                route="cuda", source=ACC_SOURCE, replaces=None,
+                bound_ms=r["step_accumulates"]["bound_ms"], bound_by="bytes",
+                plain_ms=r["step_accumulates"]["plain_ms"]))
+    for r in copies.get("accumulate", []):
+        numel = math.prod(r["shape"])
+        on_path = [s for label, c in copies.items() if label != "accumulate" for s in c["steps"]]
+        n = sum(s["by_numel"].get(numel, 0) for s in on_path)
+        kernels.append(dict(
+            name=f"accumulate.add_bf16_into_f32[{'x'.join(map(str, r['shape']))}]", launches=n,
+            launches_per_step=n / len(on_path) if n else 0, ms=r["kernel_ms"], route="cuda",
+            source=ACC_SOURCE, replaces=None, bound_ms=r["bound_ms"], bound_by="bytes",
+            plain_ms=r["torch_add_ms"]))
     marks = [*marks, ("end", time.perf_counter())]
     report["phase_s"] = {str(a): b_t - a_t for (a, a_t), (_, b_t) in zip(marks, marks[1:])}
     print(f"[t] seconds by phase: { {k: round(v, 1) for k, v in report['phase_s'].items()} }; "
@@ -2747,7 +2947,8 @@ PHASES = ((1, build_phase), (2, schedules_phase), (3, fused_forward_phase), (4, 
           (5, profile_phase), (6, turns_phase), (7, acting_shapes_phase), (8, dmc_fused_phase),
           (9, dmc_step_phase), (10, inference_phase), (11, learner_phase), (12, generator_phase),
           (13, probe_phase), (14, mesh_phase), (15, learning_phase), (16, tools_phase),
-          (17, graph_phase), (18, dv3_k1_phase), (19, dv3_graph_phase), (20, k1_backward_phase))
+          (17, graph_phase), (18, dv3_k1_phase), (19, dv3_graph_phase), (20, k1_backward_phase),
+          (21, copies_phase))
 
 # What each flag runs instead: phase numbers, or (number, options) for a phase
 # that a flag runs with options.
@@ -2757,6 +2958,7 @@ ONLY = {
     "--graph-only": (1, 17),
     "--dv3-only": (1, 18, 19),
     "--backward-only": (1, 20),
+    "--copies-only": (1, 21),
 }
 
 

@@ -206,8 +206,9 @@ def gru_dv2_reference(x, h, w_ih, w_hh, scale, bias) -> torch.Tensor:
     return update * newval + (1.0 - update) * h.float()
 
 
-def build() -> Path:
-    """Compile ``csrc/gru_dv2.cu`` (if not built yet) and return the library path.
+def build(source: Path = SOURCE) -> Path:
+    """Compile ``source`` (``csrc/gru_dv2.cu`` by default; if not built yet)
+    and return the library path.
 
     The library name carries a hash of the source and flags, so an edited
     source is rebuilt. nvcc's output (``-Xptxas -v``: registers, shared
@@ -215,9 +216,9 @@ def build() -> Path:
     """
     from torch.utils.cpp_extension import CUDA_HOME
 
-    src = SOURCE.read_bytes()
+    src = source.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"libgru_dv2_{digest}.so"
+    lib_path = BUILD_DIR / f"lib{source.stem}_{digest}.so"
     if lib_path.exists():
         return lib_path
     if CUDA_HOME is None:
@@ -225,7 +226,7 @@ def build() -> Path:
     nvcc = str(Path(CUDA_HOME) / "bin" / "nvcc")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib_path.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     log = proc.stdout + proc.stderr
     lib_path.with_suffix(".log").write_text(" ".join(cmd) + "\n" + log)

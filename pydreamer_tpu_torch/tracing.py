@@ -21,11 +21,13 @@ trace readers take for the CUDA runtime's own calls):
 * ``pd.dream``: ``Dreamer.dream``, the H-step loop;
 * ``pd.actor_critic``: ``ActorCritic.training_step`` (GAE, actor and critic
   losses);
-* ``pd.backward``: the loss sum and the one ``backward()``; inside it
+* ``pd.backward``: the gradients zeroed in place, the loss sum and the one
+  ``backward()`` (with the step copies' accumulations); inside it
   ``pd.k1_backward``, ``GRUDv2Function.backward`` (K1's backward and its recompute),
   which runs on autograd's device thread;
-* ``pd.optimizer``: the critic-target copies, the gradient zero-fill, the
-  norms, the clip and ``AdamW.step`` (and DreamerV3's slow-critic EMA);
+* ``pd.optimizer``: the critic-target copies, the refresh of the step's
+  weight copies before the forward, the norms, the clip and ``AdamW.step``
+  (and DreamerV3's slow-critic EMA);
 * ``pd.twohot``: DreamerV3's two-hot symlog work (the target's encoding,
   the log-softmax over the bins, the means) of the reward head and of both
   critics, inside ``pd.heads``, ``pd.dream`` and ``pd.actor_critic``;
@@ -34,14 +36,17 @@ trace readers take for the CUDA runtime's own calls):
 * ``pd.loop.<name>``: ``tools.Timer``'s phases of the trainer's loop.
 
 ``COUNTERS`` counts always, in plain integer adds: ``weight_casts``, each
-cast of a parameter to another dtype (``models/modules.py::cast_param``);
-``train_steps``, the ``TrainStep`` calls; ``graph_captures``, the steps
-``TrainStep`` captured into CUDA graphs, and ``graph_replays``, its calls
-served by replaying them. The adds of the model's code run only while a step
-runs eagerly or is captured: a replay credits what its capture counted, in
-every counter field registered with ``TALLIES`` (``COUNTERS.weight_casts``
-here, K1's ``LAUNCHES`` in ``ops/gru_dv2.py``). A counter that the model's
-code adds to registers its fields there, or a replayed step leaves it short.
+cast of a parameter to another dtype (``models/modules.py::cast_param``, and
+each made or refreshed step copy, ``WeightCopies``); ``weight_copies``, the
+step copies' casts alone; ``weight_copy_uses``, the casts that a step copy
+served instead; ``train_steps``, the ``TrainStep`` calls; ``graph_captures``,
+the steps ``TrainStep`` captured into CUDA graphs, and ``graph_replays``, its
+calls served by replaying them. The adds of the model's code run only while a
+step runs eagerly or is captured: a replay credits what its capture counted,
+in every counter field registered with ``TALLIES`` (``COUNTERS``' three
+weight counters here, K1's ``LAUNCHES`` in ``ops/gru_dv2.py``). A counter
+that the model's code adds to registers its fields there, or a replayed
+step leaves it short.
 """
 
 from __future__ import annotations
@@ -116,6 +121,8 @@ class _Counters:
 
     def reset(self) -> None:
         self.weight_casts = 0
+        self.weight_copies = 0
+        self.weight_copy_uses = 0
         self.train_steps = 0
         self.graph_captures = 0
         self.graph_replays = 0
@@ -168,4 +175,4 @@ class Tallies:
 
 COUNTERS = _Counters()
 TALLIES = Tallies()
-TALLIES.register(COUNTERS, "weight_casts")
+TALLIES.register(COUNTERS, "weight_casts", "weight_copies", "weight_copy_uses")

@@ -28,7 +28,12 @@ Counterpart of ``pydreamer_tpu/training/train_step.py:53-162``:
   the auxiliary critic's target sits in the ``wm`` subtree with zero
   gradients, which leaves both the update and ``grad_norm`` as they are here.
 
-Master parameters and optimizer state are float32.
+Master parameters and optimizer state are float32. A step reads each
+parameter that its ops take in bfloat16 from one copy (``WeightCopies``),
+refreshed from the master at the start of ``update`` (after the target
+copies, the slow-critic EMA and any ``load_state_dict``), and each use's
+gradient is added straight into the float32 ``.grad``, which ``update``
+therefore zeroes in place before ``backward()`` (``models/modules.py``).
 
 Under a mesh (``ctx``, a ``parallel.DistributedContext``; JAX's step is
 jitted over one, train_step.py:18-20) the model is placed on it before the
@@ -70,6 +75,7 @@ from torch.utils import _pytree as pytree
 from .. import tracing
 from ..device import resolve_device
 from ..models.functions import global_norm
+from ..models.modules import WeightCopies
 from ..models.noise import GeneratorNoise
 from ..tracing import COUNTERS, TALLIES, span
 
@@ -159,6 +165,9 @@ class TrainStep:
         self.target_interval_aux = (conf.get("target_interval_aux", 0)
                                     if getattr(model.wm, "ac_aux", None) is not None else 0)
         self.parts = param_parts(model)
+        self.params = [p for params in self.parts.values() for p in params]
+        self.grads: List[torch.Tensor] = []  # each parameter's ``.grad``, held (``zero_grads_``)
+        self.copies = WeightCopies()
         self.groups = param_groups(model, conf)
         lrs = {"wm": conf.adam_lr, "probe": conf.adam_lr,
                "actor": conf.adam_lr_actor or conf.adam_lr,
@@ -216,37 +225,53 @@ class TrainStep:
             if self.target_interval_aux and step % self.target_interval_aux == 0:
                 model.wm.ac_aux.update_critic_target()
 
+    def hold_grads(self) -> None:
+        """Each parameter's ``.grad`` set back to the tensor held for it, where
+        anything (``zero_grad()``, a script) has set it to another or None."""
+        for p, g in zip(self.params, self.grads):
+            if p.grad is not g:
+                p.grad = g
+
+    def zero_grads_(self) -> None:
+        """Each parameter's ``.grad`` zeroed in place: tensors made at the
+        first update (or taken from ``.grad`` there) and held here, so their
+        addresses hold from step to step and those a captured step writes stay
+        alive whatever sets ``.grad`` between calls."""
+        if not self.grads:
+            self.grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.params]
+        self.hold_grads()
+        torch._foreach_zero_(self.grads)
+
     def update(self, obs, in_state, noise, do_image_pred: bool = False,
                do_dream_tensors: bool = False):
         """The forward, the backward, the clip and AdamW: what a graph captures."""
         ctx, model = self.ctx, self.model
+        if self.copies:
+            with span("pd.optimizer"):
+                self.copies.refresh()
         if ctx is not None:
             streams = obs["action"].shape[1] * self.conf.iwae_samples
             noise = ctx.noise(noise, streams)
             ctx.batch_reduce.active = True
         try:
-            losses, out_state, metrics, tensors, dream_tensors = model.training_step(
-                obs, in_state, noise, do_image_pred=do_image_pred,
-                do_dream_tensors=do_dream_tensors)
+            with self.copies.serving():
+                losses, out_state, metrics, tensors, dream_tensors = model.training_step(
+                    obs, in_state, noise, do_image_pred=do_image_pred,
+                    do_dream_tensors=do_dream_tensors)
         finally:
             if ctx is not None:
                 ctx.batch_reduce.active = False
         with span("pd.backward"):
-            self.optimizer.zero_grad(set_to_none=True)
+            self.zero_grads_()
             sum(losses.values()).backward()
 
         metrics = dict(metrics)
         with span("pd.optimizer"):
-            grads = {}
-            for part, params in self.parts.items():
-                for p in params:
-                    if p.grad is None:
-                        p.grad = torch.zeros_like(p)
-                grads[part] = [p.grad for p in params]
+            grads = {part: [p.grad for p in params] for part, params in self.parts.items()}
             if ctx is None:
                 norms = {part: global_norm(g) for part, g in grads.items()}
             else:
-                ctx.reduce_gradients([p for params in self.parts.values() for p in params])
+                ctx.reduce_gradients(self.params)
                 norms = ctx.grad_norms(grads, self.parts)
             for part, norm in norms.items():
                 metrics[METRICS[part]] = norm
@@ -400,15 +425,15 @@ class Packed:
 @dataclass
 class Captured:
     """One input signature's captured step: the static inputs it reads, its
-    segments, its packed (out_state, metrics, tensors), the gradients it
-    writes, what its capture added to the counters (``TALLIES.since``) and the
-    seconds it took."""
+    segments, its packed (out_state, metrics, tensors), what its capture
+    added to the counters (``TALLIES.since``) and the seconds it took. The
+    gradients it writes are the ones ``TrainStep`` holds (``zero_grads_``),
+    which each replay sets back as the parameters' ``.grad``."""
 
     obs: Dict[str, torch.Tensor]
     in_state: object
     segments: List[Tuple[Tuple[str, ...], object]]
     outputs: Tuple[Packed, ...]
-    grads: List[Tuple[torch.nn.Parameter, torch.Tensor]]
     delta: list
     seconds: float
 
@@ -465,7 +490,7 @@ class StepGraphs:
         static_state = pytree.tree_map(torch.clone, in_state)
         noise = GeneratorNoise(ts.device, generator=self.backend.generator)
         before = TALLIES.snapshot()
-        with self.backend.capturing():
+        with self.backend.capturing(), ts.copies.sealed():
             cut = Segments(self.backend, self.backend.pool())
             try:
                 with tracing.cutting(cut):
@@ -481,9 +506,8 @@ class StepGraphs:
             segments = cut.finish()
         delta = TALLIES.since(before)
         TALLIES.restore(before)
-        params = [p for params in ts.parts.values() for p in params]
-        return Captured(static_obs, static_state, segments, outputs,
-                        [(p, p.grad) for p in params], delta, time.perf_counter() - t0)
+        return Captured(static_obs, static_state, segments, outputs, delta,
+                        time.perf_counter() - t0)
 
     def replay(self, ts, captured: Captured, obs, in_state, seed: int):
         for k, v in obs.items():
@@ -493,10 +517,8 @@ class StepGraphs:
         if self.backend.generator is not None:
             self.backend.generator.manual_seed(seed)
         replay_segments(self.backend, captured.segments)
+        ts.hold_grads()
         TALLIES.credit(captured.delta)
         COUNTERS.graph_replays += 1
-        for p, grad in captured.grads:
-            if p.grad is not grad:
-                p.grad = grad
         out_state, metrics, tensors = (part.copy() for part in captured.outputs)
         return out_state, metrics, tensors, {}

@@ -12,10 +12,10 @@ import chip_smoke
 
 ROOT = Path(__file__).resolve().parent.parent
 
-# The phases each flag runs, as the per-flag branches of main() ran them
-# before the table replaced them.
+# The phases each flag runs: as the per-flag branches of main() ran them
+# before the table replaced them, and phase 21's flag.
 FLAG_PHASES = {"--learning-only": [1, 15], "--tools-only": [1, 2, 16], "--graph-only": [1, 17],
-               "--dv3-only": [1, 18, 19], "--backward-only": [1, 20]}
+               "--dv3-only": [1, 18, 19], "--backward-only": [1, 20], "--copies-only": [1, 21]}
 
 
 @pytest.mark.parametrize("name, preset", [("atari_dv2", "flagship_conf"), ("dmc_dv2", "dmc_conf"),
@@ -44,8 +44,8 @@ def test_each_flag_runs_the_phases_its_usage_names(flag):
 
 def test_no_flag_runs_every_phase_once_in_order():
     rows = chip_smoke.plan([])
-    assert [n for n, _, _ in rows] == list(range(1, 21))
-    assert len({fn for _, fn, _ in rows}) == 20
+    assert [n for n, _, _ in rows] == list(range(1, 22))
+    assert len({fn for _, fn, _ in rows}) == 21
     assert all(opts == {} for _, _, opts in rows)
 
 

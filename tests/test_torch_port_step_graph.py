@@ -17,10 +17,11 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from pydreamer_tpu_torch import tracing
-from pydreamer_tpu_torch.models import rnn
+from pydreamer_tpu_torch.models import modules, rnn
 from pydreamer_tpu_torch.models.dreamer import Dreamer
 from pydreamer_tpu_torch.models.noise import GeneratorNoise
 from pydreamer_tpu_torch.ops import gru_dv2
+from pydreamer_tpu_torch.ops.accumulate import ACCUMULATES
 from pydreamer_tpu_torch.ops.gru_dv2 import K1_BACKWARDS, LAUNCHES
 from pydreamer_tpu_torch.scripts.flagship import make_batch, make_conf
 from pydreamer_tpu_torch.tracing import COUNTERS, NULL, span
@@ -78,6 +79,11 @@ def _stepper(k1=False, monkeypatch=None, **overrides):
             return gru_dv2.gru_dv2_reference(x, h, *rest)
         monkeypatch.setattr(gru_dv2, "gru_dv2_cuda", launch)
         monkeypatch.setattr(rnn, "gru_dv2", gru_dv2.GRUDv2Function.apply)
+
+        def accumulate(acc, g):  # the accumulate kernel's count, torch's add_ for its sums
+            ACCUMULATES.add(acc.numel())
+            acc.add_(g)
+        monkeypatch.setattr(modules, "accumulate_", accumulate)
     torch.manual_seed(0)
     model = Dreamer(conf, device="cpu")
     ts = TrainStep(model, conf, device="cpu")
@@ -239,30 +245,39 @@ def test_each_replay_credits_what_the_captured_step_counted(monkeypatch):
     conf, model, ts, _ = _stepper(k1=True, monkeypatch=monkeypatch, precision="bfloat16")
     obs = make_batch(conf, device="cpu")
     state = [model.init_state(conf.batch_size)]
-    per_call, backwards = [], []
+    per_call, backwards, accumulates = [], [], []
     for step in range(1, 6):
         COUNTERS.reset()
         LAUNCHES.reset()
         K1_BACKWARDS.reset()
+        ACCUMULATES.reset()
         state[0], *_ = ts(obs, state[0], step, seed=4)
-        per_call.append((COUNTERS.weight_casts, LAUNCHES.count, dict(LAUNCHES.by_rows),
+        per_call.append((COUNTERS.weight_casts, COUNTERS.weight_copies,
+                         COUNTERS.weight_copy_uses, LAUNCHES.count, dict(LAUNCHES.by_rows),
                          dict(LAUNCHES.by_schedule), COUNTERS.graph_replays,
                          COUNTERS.graph_captures, COUNTERS.train_steps))
         backwards.append((dict(K1_BACKWARDS.by_route), dict(K1_BACKWARDS.by_rows)))
+        accumulates.append((ACCUMULATES.count, dict(ACCUMULATES.by_numel)))
     T, B, H = conf.batch_length, conf.batch_size, conf.imag_horizon
     eager = per_call[0]
-    assert eager[0] > 0 and eager[1:4] == (T + H, {B: T, T * B: H}, {"skinny": T, "wide": H})
-    assert eager[4:] == (0, 0, 1)
-    assert per_call[1][:4] == eager[:4] and per_call[1][4:] == (1, 1, 1)   # capture + replay
+    assert eager[0] == eager[1] > 0 and eager[2] > eager[1]  # one cast a copy; the copies' uses
+    # One accumulate a use that takes a gradient, the same in every call.
+    assert 0 < accumulates[0][0] <= eager[2] and accumulates == [accumulates[0]] * 5
+    assert eager[3:6] == (T + H, {B: T, T * B: H}, {"skinny": T, "wide": H})
+    assert eager[6:] == (0, 0, 1)
+    assert per_call[1][:6] == eager[:6] and per_call[1][6:] == (1, 1, 1)   # capture + replay
     for replay in per_call[2:]:
-        assert replay[:4] == eager[:4] and replay[4:] == (1, 0, 1)
+        assert replay[:6] == eager[:6] and replay[6:] == (1, 0, 1)
     # K1's backward: the posterior loop's T calls, the bf16 pass, in every call.
     assert backwards == [({"kernel": T}, {B: T})] * 5
     delta = ts.graphs.captured[ts.signature(obs, state[0])].delta
-    assert {name: change for c, name, change in delta if c is not K1_BACKWARDS} == dict(
-        zip(("weight_casts", "count", "by_rows", "by_schedule"), eager[:4]))
+    assert {name: change for c, name, change in delta if c in (COUNTERS, LAUNCHES)} == dict(
+        zip(("weight_casts", "weight_copies", "weight_copy_uses", "count", "by_rows",
+             "by_schedule"), eager[:6]))
     assert {name: change for c, name, change in delta if c is K1_BACKWARDS} == dict(
         zip(("by_route", "by_rows"), backwards[0]))
+    assert {name: change for c, name, change in delta if c is ACCUMULATES} == dict(
+        zip(("count", "by_numel"), accumulates[0]))
 
 
 def test_a_counter_registered_with_tallies_is_credited_by_each_replay(monkeypatch):
@@ -301,6 +316,7 @@ def test_replays_return_their_own_tensors_and_keep_the_gradients():
     obs = make_batch(conf, device="cpu")
     state = model.init_state(conf.batch_size)
     eager = ts(obs, state, 1, seed=6)
+    grads = [(p, p.grad) for p in ts.params]  # made once, zeroed in place by every step
     outs = [ts(obs, state, step, seed=6) for step in (2, 3)]
     for (s0, m0, t0, d0), (s1, m1, t1, d1) in [(eager, outs[0]), (outs[0], outs[1])]:
         assert list(m0) == list(m1) and list(t0) == list(t1) and d1 == {}
@@ -308,11 +324,19 @@ def test_replays_return_their_own_tensors_and_keep_the_gradients():
     ptrs = [{t.untyped_storage().data_ptr() for t in torch.utils._pytree.tree_leaves(o[:3])}
             for o in outs]
     assert not ptrs[0] & ptrs[1]
-    (captured,) = ts.graphs.captured.values()
+    assert all(p.grad is g for p, g in grads)
     ts(obs, state, 4, seed=6, do_image_pred=True)     # an eager log step in between
-    assert any(p.grad is not g for p, g in captured.grads)
+    assert all(p.grad is g for p, g in grads)
     ts(obs, state, 5, seed=6)
-    assert all(p.grad is g for p, g in captured.grads)
+    assert all(p.grad is g for p, g in grads)
+    # Gradients set to None between calls (torch's zero_grad): the replay
+    # writes into the held tensors, and sets them back as .grad.
+    for zero_grad in (model.zero_grad, ts.optimizer.zero_grad):
+        zero_grad()
+        assert all(p.grad is None for p, _ in grads)
+        ts(obs, state, 6, seed=6)
+        assert all(p.grad is g for p, g in grads)
+        assert any(g.any() for _, g in grads)
 
 
 def test_outputs_pack_each_part_by_dtype_and_unpack_fresh_copies():
@@ -415,6 +439,22 @@ def test_a_failed_capture_leaves_the_counters_and_runs_eagerly_from_then_on(monk
     ts(obs, state, 4, seed=8)
     assert calls == [True, False, False]
     assert COUNTERS.graph_captures == COUNTERS.graph_replays == 0
+
+
+def test_a_capture_makes_no_weight_copy():
+    """The copies are made by the eager step before the capture; one that a
+    capture would make (here: all, dropped after that step) refuses it."""
+    conf, model, ts, fake = _stepper(precision="bfloat16")
+    obs = make_batch(conf, device="cpu")
+    state = model.init_state(conf.batch_size)
+    ts(obs, state, 1, seed=9)
+    made = len(ts.copies)
+    ts.copies.copies.clear()
+    with pytest.raises(RuntimeError, match="no step copy"):
+        ts(obs, state, 2, seed=9)
+    assert not ts.graphs.captured and not ts.copies.is_sealed
+    ts(obs, state, 3, seed=9)                          # eager from then on: made again
+    assert len(ts.copies) == made > 0
 
 
 def test_adamw_is_capturable_only_on_cuda_whatever_a_loaded_file_says():

@@ -116,26 +116,35 @@ def test_timer_phases_are_loop_spans_with_unchanged_samples(monkeypatch):
 
 @pytest.mark.parametrize("gru_type", ["gru_layernorm_dv2", "gru"])
 def test_weight_casts_count_the_parameter_casts_in_bfloat16(monkeypatch, gru_type):
+    """One cast a step per parameter read in bfloat16, the step copy's: made
+    by ``Tensor.to`` at step 1 and refreshed by ``torch._foreach_copy_`` after.
+    Each counted cast is one that these calls make, and no parameter is cast
+    twice in a step."""
     model, step = _stepper(precision="bfloat16", gru_type=gru_type)
     params = {id(p) for p in model.parameters()}
-    to = torch.Tensor.to
-    seen = [0]
+    to, foreach_copy = torch.Tensor.to, torch._foreach_copy_
+    seen = []
 
     def counting_to(self, *args, **kwargs):
         out = to(self, *args, **kwargs)
         if id(self) in params and out.dtype != self.dtype:
-            seen[0] += 1
+            seen.append(id(self))
         return out
 
+    def counting_foreach_copy(dst, src, *args, **kwargs):
+        seen.extend(id(s) for d, s in zip(dst, src) if id(s) in params and d.dtype != s.dtype)
+        return foreach_copy(dst, src, *args, **kwargs)
+
     monkeypatch.setattr(torch.Tensor, "to", counting_to)
+    monkeypatch.setattr(torch, "_foreach_copy_", counting_foreach_copy)
     per_step = []
     for n in (1, 2):
         COUNTERS.reset()
-        seen[0] = 0
+        seen.clear()
         step(n)
         assert COUNTERS.train_steps == 1
-        assert COUNTERS.weight_casts == seen[0] > 0
-        per_step.append(COUNTERS.weight_casts)
+        assert COUNTERS.weight_casts == COUNTERS.weight_copies == len(seen) == len(set(seen)) > 0
+        per_step.append(set(seen))
     assert per_step[0] == per_step[1]
 
 
