@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port (``pydreamer_tpu_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py [--learning-only | --tools-only | --graph-only | --dv3-only |
-                           --backward-only | --copies-only | --k2-only]
+                           --backward-only | --copies-only | --k2-only | --dw-only]
 
 Runs the phases of ``PHASES`` in order, or with a flag the phases that
 ``ONLY`` lists for it. Each phase is a function whose docstring says what it
@@ -25,7 +25,8 @@ the nvidia-smi line, then as the last line
 ``chiprun_out/live_log.txt`` and ``chiprun_out/live_run/`` (phase 15c),
 ``chiprun_out/tools_phase.json`` (phase 16),
 ``chiprun_out/k1_backward_phase.json`` (phase 20) and ``chip_smoke.json``'s
-``copies`` (phase 21), ``k2`` (phase 22) and ``graphs_dv3_200m`` (phase 23);
+``copies`` (phase 21), ``k2`` (phase 22), ``graphs_dv3_200m`` (phase 23),
+``dw_batch`` and ``graphs_dw`` (phase 24);
 phase 11's episode files
 stay in ``chiprun_out/learner_episodes/`` and the run directories (under
 ``runs/``, git-ignored) are removed at the end.
@@ -35,6 +36,7 @@ This script imports nothing of JAX or of the JAX package; its presets are
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -3041,6 +3043,134 @@ def dv3_200m_graph_phase(rs: RunState) -> None:
                     core="k2")
 
 
+DW_STEPS = 6  # phase 24's steps a width: eager, capture + replay, then replays
+DW_SEED = 2 ** 33 + 24
+DW_GAP_LIMIT = 2.0 ** -7  # K1's batched dW against the per-call one, relative to the latter's
+                          # max: twice bf16's spacing. Set from the gaps first read on the H100 at
+                          # the DMC widths and XL's step 1, 2.1e-3 to 3.2e-3 (the per-call path's
+                          # 48-64 bf16 roundings); XL's steps 2-6 then read up to 5.2e-3
+
+
+@contextlib.contextmanager
+def per_call_dw():
+    """K1's weight gradient made by each call, as before the posterior loop
+    summed it once: ``RSSMCore.forward``'s loop run without ``dw_batches()``."""
+    from pydreamer_tpu_torch.models import rssm
+
+    saved = rssm.dw_batches
+    rssm.dw_batches = contextlib.nullcontext
+    try:
+        yield
+    finally:
+        rssm.dw_batches = saved
+
+
+def dw_product_ms(rs: RunState, T: int, M: int, In: int, H: int) -> dict:
+    """The loop's one sum (``DWBatch.sum``'s two products over T*M rows) and
+    the T per-call products it replaces, timed (CUDA graphs, L2 warm), beside
+    the sum's bound: its operations at the card's bf16 rate."""
+    gen, device = rs.gen, rs.device
+    randn = lambda *shape: torch.randn(*shape, generator=gen, device=device).bfloat16()
+    X, Hs, dG = randn(T * M, In), randn(T * M, H), randn(T * M, 3 * H)
+    rows = [slice(t * M, (t + 1) * M) for t in range(T)]
+    ms = time_ms(lambda: (k1._dw(X, dG), k1._dw(Hs, dG)), 10)
+    per_call_ms = time_ms(lambda: [(k1._dw(X[r], dG[r]), k1._dw(Hs[r], dG[r])) for r in rows], 2)
+    flops = 2 * T * M * (In + H) * 3 * H
+    return dict(T=T, M=M, In=In, H=H, ms=ms, per_call_ms=per_call_ms, gflop=flops / 1e9,
+                bound_ms=flops / rs.peaks[1] * 1e3)
+
+
+def dw_batch_phase(rs: RunState) -> None:
+    """24. K1's weight gradient summed once over the posterior loop
+    (``ops/gru_dv2.py`` ``DWBatch``, ``DWSum``) at the ``dmc_dv2`` and
+    ``atari_dv3_xl`` widths (``dmc_conf``, ``dv3_conf``): two models from the
+    same weights, one training through its ``TrainStep`` as it runs (eager at
+    step 1, captured and replayed at 2, replayed from 3), one through an eager
+    ``TrainStep`` with K1's dW made per call (``per_call_dw``), its weights
+    reset to the first's before each of ``DW_STEPS`` steps; the clip off, so
+    ``.grad`` is what ``backward()`` left. Per step: the K1 gate weights'
+    gradients against the per-call path's (``rel_err``, held to
+    ``DW_GAP_LIMIT``; the norm-relative gap printed too), every other gradient
+    equal bit for bit; ``K1_DW``: T batched calls and one sum a step on the
+    first (a replay credits them), T per-call calls on the other;
+    ``ACCUMULATES.by_numel`` at the K1 weights' sizes: each K1 weight added
+    once a step in place of T times (another leaf of the same size, as XL's
+    ``post_mlp_e`` beside ``weight_ih``, keeps its own adds). Then the sum's
+    products timed at each width beside their bound and the per-call products
+    they replace (``dw_product_ms``), and phase 17's check of the graphed step
+    against the eager one over six steps at both widths (``graphs_vs_eager``)."""
+    from pydreamer_tpu_torch.ops.accumulate import ACCUMULATES
+    from pydreamer_tpu_torch.tracing import COUNTERS
+
+    device, out = rs.device, {}
+    for label, cfg in (("dmc_dv2", dmc_conf()), ("atari_dv3_xl", dv3_conf())):
+        conf = Conf(cfg)
+        T, B = conf.batch_length, conf.batch_size
+        torch.manual_seed(24)
+        models = {"batched": Dreamer(conf, device=device), "per_call": Dreamer(conf, device=device)}
+        steps = {k: TrainStep(m, conf, device=device) for k, m in models.items()}
+        steps["per_call"].graphs = None
+        for ts in steps.values():
+            ts.clips = {k: math.inf for k in ts.clips}
+        params = {k: dict(m.named_parameters()) for k, m in models.items()}
+        names = [n for n in params["batched"] if ".gru." in n and n.endswith(("_ih", "_hh"))]
+        numels = [params["batched"][n].numel() for n in names]
+        k1_weights = {n: numels.count(n) for n in sorted(set(numels))}  # of each size
+        rows = []
+        for step in range(1, DW_STEPS + 1):
+            obs = make_obs(conf, rs.gen, device)
+            models["per_call"].load_state_dict(models["batched"].state_dict())
+            state = models["batched"].init_state(B)
+            row = dict(step=step)
+            for key in ("per_call", "batched"):
+                k1.K1_DW.reset()
+                ACCUMULATES.reset()
+                before = (COUNTERS.graph_captures, COUNTERS.graph_replays)
+                with per_call_dw() if key == "per_call" else contextlib.nullcontext():
+                    steps[key](obs, state, step, seed=DW_SEED)
+                torch.cuda.synchronize()
+                row[key] = dict(
+                    how={(0, 0): "eager", (1, 1): "capture+replay", (0, 1): "replay"}[
+                        (COUNTERS.graph_captures - before[0], COUNTERS.graph_replays - before[1])],
+                    by_path=dict(k1.K1_DW.by_path), products=k1.K1_DW.products,
+                    adds={n: ACCUMULATES.by_numel.get(n, 0) for n in k1_weights})
+            got, want = params["batched"], params["per_call"]
+            row["gap"] = {n: rel_err(got[n].grad, want[n].grad) for n in names}
+            row["norm_gap"] = {n: ((got[n].grad - want[n].grad).norm()
+                                   / want[n].grad.norm()).item() for n in names}
+            row["differ"] = [n for n, p in got.items() if p.requires_grad and n not in names
+                             and not torch.equal(p.grad, want[n].grad)]
+            rows.append(row)
+            print(f"[24] {label} step {step} ({row['batched']['how']}): K1 dW gap to the per-call "
+                  f"path {row['gap']} (norm {row['norm_gap']}); adds a step by size "
+                  f"{row['batched']['adds']} against {row['per_call']['adds']}; K1_DW "
+                  f"{row['batched']['by_path']}, {row['batched']['products']} sums", flush=True)
+            batched, per_call = row["batched"], row["per_call"]
+            if (row["differ"] or (batched["by_path"], batched["products"]) != ({"batched": T}, 1)
+                    or (per_call["by_path"], per_call["products"]) != ({"per_call": T}, 0)
+                    or any(per_call["adds"][n] - batched["adds"][n] != (T - 1) * k
+                           or batched["adds"][n] < k for n, k in k1_weights.items())
+                    or not all(math.isfinite(g) for g in row["gap"].values())
+                    or max(row["gap"].values()) > DW_GAP_LIMIT):
+                raise AssertionError(f"[24] {label} step {step}: {row} (limit {DW_GAP_LIMIT})")
+        if [r["batched"]["how"] for r in rows[:3]] != ["eager", "capture+replay", "replay"]:
+            raise AssertionError(f"[24] {label}: steps ran {[r['batched']['how'] for r in rows]}")
+        cell = models["batched"].wm.core.cell.gru.cell_0
+        product = dw_product_ms(rs, T, B, cell.weight_ih.shape[0], cell.hidden_size)
+        out[label] = dict(steps=rows, product=product,
+                          worst_gap=max(max(r["gap"].values()) for r in rows))
+        print(f"[24] {label}: worst K1 dW gap {out[label]['worst_gap']:.3e} (limit "
+              f"{DW_GAP_LIMIT:.3e}); the sum's products over {T * B} rows {product['ms']:.4f} ms, "
+              f"bound {product['bound_ms']:.4f} ms ({product['gflop']:.1f} GFLOP, "
+              f"{100 * product['bound_ms'] / product['ms']:.1f}%); the {T} per-call products "
+              f"{product['per_call_ms']:.4f} ms", flush=True)
+        del models, steps, params
+        torch.cuda.empty_cache()
+    rs.report["dw_batch"] = out
+    graphs_vs_eager(rs, (("dmc_dv2", dmc_conf()), ("atari_dv3_xl", dv3_conf())), "24",
+                    "graphs_dw")
+
+
 def finish(rs: RunState, marks: list) -> int:
     """The kernels line (one entry per timed K1 row: its launches on the paths
     that ran its shape, per train step or acting call; then one per timed
@@ -3129,7 +3259,7 @@ PHASES = ((1, build_phase), (2, schedules_phase), (3, fused_forward_phase), (4, 
           (9, dmc_step_phase), (10, inference_phase), (11, learner_phase), (12, generator_phase),
           (13, probe_phase), (14, mesh_phase), (15, learning_phase), (16, tools_phase),
           (17, graph_phase), (18, dv3_k1_phase), (19, dv3_graph_phase), (20, k1_backward_phase),
-          (21, copies_phase), (22, k2_phase), (23, dv3_200m_graph_phase))
+          (21, copies_phase), (22, k2_phase), (23, dv3_200m_graph_phase), (24, dw_batch_phase))
 
 # What each flag runs instead: phase numbers, or (number, options) for a phase
 # that a flag runs with options.
@@ -3141,6 +3271,7 @@ ONLY = {
     "--backward-only": (1, 20),
     "--copies-only": (1, 21),
     "--k2-only": (1, 22, 23),
+    "--dw-only": (1, 24),
 }
 
 

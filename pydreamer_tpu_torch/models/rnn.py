@@ -20,7 +20,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from ..ops.gru_dv2 import gru_dv2
+from ..ops.gru_dv2 import gru_dv2, step_weights
 from .modules import cast_param, layer_norm
 
 __all__ = ["GRUCell", "NormGRUCell", "NormGRUCellLateReset",
@@ -135,7 +135,9 @@ class NormGRUCellLateResetFused(_GateWeights):
     with the same parameter names. On CUDA tensors the step always runs K1
     (the bf16 schedules under ``precision: bfloat16``, the full-f32 schedule
     under ``precision: float32``); on the CPU it runs K1's plain version in
-    either dtype.
+    either dtype. Inside an unroll's ``dw_batches()`` a bf16 step on the card
+    whose weights take a gradient reads them once an unroll
+    (``step_weights``), and its dW is summed once over the loop.
     """
 
     def __init__(self, input_size: int, hidden_size: int, dtype=torch.float32):
@@ -145,9 +147,10 @@ class NormGRUCellLateResetFused(_GateWeights):
 
     def forward(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        out = gru_dv2(x.to(dt).contiguous(), h.to(dt).contiguous(), *self.gate_weights(dt),
-                      self.ln_scale, self.ln_bias)
-        return out.to(dt)
+        x, h = x.to(dt).contiguous(), h.to(dt).contiguous()
+        w_ih, w_hh, batch = step_weights(self, x, (self.weight_ih, self.weight_hh),
+                                         lambda: self.gate_weights(dt))
+        return gru_dv2(x, h, w_ih, w_hh, self.ln_scale, self.ln_bias, batch).to(dt)
 
 
 _CELLS = {

@@ -25,6 +25,9 @@ layer inside (kernel K2, ``ops/block_gru.py``), the posterior and prior
 layers, RMSNorm, and a zero initial state: a reset zeroes h, z and the
 action.
 
+The T loop runs inside ``ops.gru_dv2.dw_batches()``: a K1 cell whose weights
+take a gradient sums its weight gradient once over the loop (``DWBatch``).
+
 Sampling noise comes in as a tensor (standard gumbel for discrete latents,
 standard normal otherwise), never as a key: the posterior loop takes the
 whole (T, B*I, S, K) block, drawn up front by the caller.
@@ -42,6 +45,7 @@ import torch.nn.functional as F
 from .distributions import DiagNormal, OneHotCategorical, diag_normal
 from .functions import expand_iwae
 from ..ops.block_gru import block_gru
+from ..ops.gru_dv2 import dw_batches
 from .modules import ACTIVATIONS, Dense, Norm, cast_param, layer_norm
 from .rnn import GRUCellStack
 
@@ -312,16 +316,17 @@ class RSSMCore(nn.Module):
         posts, states_h, samples = [], [], []
         state = in_state
         initial = self.cell.initial_state(1) if self.cell.initial is not None else None
-        for t in range(T):
-            if do_open_loop:
-                post, state = self.cell.prior_step(state, actions[t], reset_masks[t], z_noise[t],
-                                                   initial)
-            else:
-                post, state = self.cell.post_step(state, embeds[t], actions[t],
-                                                  reset_masks[t], z_noise[t], initial)
-            posts.append(post)
-            states_h.append(state[0])
-            samples.append(state[1])
+        with dw_batches():  # K1's dW summed once over the loop
+            for t in range(T):
+                if do_open_loop:
+                    post, state = self.cell.prior_step(state, actions[t], reset_masks[t],
+                                                       z_noise[t], initial)
+                else:
+                    post, state = self.cell.post_step(state, embeds[t], actions[t],
+                                                      reset_masks[t], z_noise[t], initial)
+                posts.append(post)
+                states_h.append(state[0])
+                samples.append(state[1])
         posts = torch.stack(posts)            # (T,BI,2S)
         states_h = torch.stack(states_h)      # (T,BI,D)
         samples = torch.stack(samples)        # (T,BI,S*K)

@@ -30,6 +30,18 @@ Counterpart of ``pydreamer_tpu/ops/gru_pallas.py`` (the Pallas kernel
   memory a block may hold (H > 4842) raises at launch, as the forward does
   on a failed launch. float32 operands take autograd through the plain
   version, as before. ``K1_BACKWARDS`` counts the calls by route and rows.
+* The weight gradient of an unroll is summed once (:class:`DWBatch`). While
+  ``dw_batches()`` is open (``RSSMCore.forward``'s T loop), a K1 cell whose
+  weights take a gradient, on the bf16 route on the card, reads its weights
+  once, through one :class:`DWSum` node, and hands each step the batch.
+  Each step's backward writes its dG into its slot of the batch's stash and
+  makes no dW; DWSum's backward, which autograd runs after every step's
+  backward (each consumes its outputs), makes ``dW_ih = X^T dG`` and
+  ``dW_hh = H^T dG`` over the T*M stacked rows, f32 sums rounded once to
+  bf16, and hands them to autograd like any weight gradient (``CopyUse``
+  adds each into ``.grad`` in one pass). Every other call (the dream's
+  frozen weights, no grad, float32, a lone call) makes its own dW. ``K1_DW``
+  counts the calls that needed dW by how it was made, and the sums made.
 
 Schedules. :func:`plan` picks one from (M, In, H, dtype) alone (see the
 header of ``csrc/gru_dv2.cu`` for what bounds each and how it is built):
@@ -70,6 +82,8 @@ registered with ``tracing.TALLIES``, so a replayed train step credits them.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 import functools
 import hashlib
@@ -86,7 +100,8 @@ from ..tracing import TALLIES, span
 __all__ = ["gru_dv2", "gru_dv2_reference", "gru_dv2_cuda", "GRUDv2Function",
            "LAUNCHES", "K1_BACKWARDS", "SCHEDULES", "Plan", "plan", "pick_schedule", "build",
            "SOURCE", "BUILD_DIR", "NVCC_FLAGS", "backward_route", "backward_rows",
-           "k1_backward", "ln_gate_backward_reference"]
+           "k1_backward", "ln_gate_backward_reference", "K1_DW", "KERNEL_DEVICES", "DWBatch",
+           "DWSum", "dw_batches", "step_weights"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "gru_dv2.cu"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -102,6 +117,7 @@ SKINNY_F32_MAX_KC = 256  # weight rows per skinny_f32 block: three blocks to an 
 WIDE_HB = 128          # hidden units per wide block
 WIDE_MAX_CLUSTER = 8   # blocks of a row tile in one cluster (the portable maximum)
 BACKWARD_BLOCKS = 256  # blocks of the LayerNorm/gate backward over many rows
+KERNEL_DEVICES = ("cuda",)  # the device types on which gru_dv2 launches K1
 
 
 @dataclass(frozen=True)
@@ -187,8 +203,26 @@ class _BackwardCounter:
         self.by_rows: dict[int, int] = {}
 
 
+class _DWCounter:
+    """Since the last ``reset()``: K1 backward calls that needed a weight
+    gradient, by how it was made (``by_path``: ``batched``, a slot of an
+    unroll's :class:`DWBatch`; ``per_call``, the call's own products), and
+    ``products``, the batches summed (each one dW_ih and one dW_hh)."""
+
+    def __init__(self):
+        self.reset()
+
+    def add(self, path: str) -> None:
+        self.by_path[path] = self.by_path.get(path, 0) + 1
+
+    def reset(self) -> None:
+        self.by_path: dict[str, int] = {}
+        self.products = 0
+
+
 LAUNCHES = TALLIES.register(_LaunchCounter(), "count", "by_rows", "by_schedule")
 K1_BACKWARDS = TALLIES.register(_BackwardCounter(), "by_route", "by_rows")
+K1_DW = TALLIES.register(_DWCounter(), "by_path", "products")
 _lib = None
 
 
@@ -350,14 +384,17 @@ def _recompute_gates(x, h, w_ih, w_hh) -> torch.Tensor:
     return parts
 
 
-def _ln_gate_backward_cuda(parts, h, scale, bias, grad_out, want_dh: bool, want_params: bool):
-    """The LayerNorm/gate backward kernel -> dG (M, 3H) bf16, the direct dh
-    term (M, H) f32 or None, d_scale and d_bias (3H) f32 or None."""
+def _ln_gate_backward_cuda(parts, h, scale, bias, grad_out, want_dh: bool, want_params: bool,
+                           dG=None):
+    """The LayerNorm/gate backward kernel -> dG (M, 3H) bf16 (into ``dG``
+    where given, contiguous), the direct dh term (M, H) f32 or None, d_scale
+    and d_bias (3H) f32 or None."""
     M, H = h.shape
     N, device = 3 * H, h.device
     rows = backward_rows(M)
     blocks = math.ceil(M / rows)
-    dG = torch.empty((M, N), dtype=torch.bfloat16, device=device)
+    if dG is None:
+        dG = torch.empty((M, N), dtype=torch.bfloat16, device=device)
     dh = torch.empty((M, H), dtype=torch.float32, device=device) if want_dh else None
     param_parts = dparams = None
     if want_params:
@@ -403,7 +440,13 @@ def _mm_f32(a, b, acc=None) -> torch.Tensor:
     return out if acc is None else out + acc
 
 
-def k1_backward(x, h, w_ih, w_hh, scale, bias, grad_out, needs) -> list:
+def _dw(a, dG) -> torch.Tensor:
+    """a^T dG in the operands' dtype: cuBLAS sums in f32 and rounds once; the
+    CPU's plain version likewise."""
+    return torch.mm(a.t(), dG) if a.is_cuda else _mm_f32(a.t(), dG).to(a.dtype)
+
+
+def k1_backward(x, h, w_ih, w_hh, scale, bias, grad_out, needs, dG_out=None) -> list:
     """K1's backward at the operands' precision -> the gradients of (x, h,
     w_ih, w_hh, scale, bias), None where ``needs`` (autograd's
     ``needs_input_grad``) does not ask for one.
@@ -413,25 +456,26 @@ def k1_backward(x, h, w_ih, w_hh, scale, bias, grad_out, needs) -> list:
     rounding; then dx = dG w_ih^T, dh = (1 - update) dL/dh' + dG w_hh^T,
     dw_ih = x^T dG and dw_hh = h^T dG, with f32 sums, each rounded once to
     its leaf's dtype. On CUDA (bf16) the first two steps are K1's kernels; on
-    the CPU their plain versions, the same arithmetic.
+    the CPU their plain versions, the same arithmetic. dG is written into
+    ``dG_out`` (M, 3H) where given (a slot of a :class:`DWBatch`).
     """
     grads = [None] * 6
     dt = x.dtype
     if x.is_cuda:
         dG, dh_term, d_scale, d_bias = _ln_gate_backward_cuda(
             _recompute_gates(x, h, w_ih, w_hh), h, scale, bias, grad_out.float().contiguous(),
-            needs[1], needs[4] or needs[5])
+            needs[1], needs[4] or needs[5], dG_out)
     else:
         gates = _mm_f32(x, w_ih) + _mm_f32(h, w_hh)
         dG, dh_term, d_scale, d_bias = ln_gate_backward_reference(gates, h, scale, bias, grad_out)
-        dG = dG.to(dt)
+        dG = dG.to(dt) if dG_out is None else dG_out.copy_(dG)
     if needs[0]:
         grads[0] = _mm_f32(dG, w_ih.t()).to(dt)
     if needs[1]:
         grads[1] = _mm_f32(dG, w_hh.t(), dh_term).to(dt)
     for i, a in ((2, x), (3, h)):
-        if needs[i]:  # K = M rows: cuBLAS sums in f32 and rounds once
-            grads[i] = torch.mm(a.t(), dG) if a.is_cuda else _mm_f32(a.t(), dG).to(dt)
+        if needs[i]:  # K = M rows
+            grads[i] = _dw(a, dG)
     if needs[4]:
         grads[4] = d_scale
     if needs[5]:
@@ -439,29 +483,130 @@ def k1_backward(x, h, w_ih, w_hh, scale, bias, grad_out, needs) -> list:
     return grads
 
 
+class DWBatch:
+    """One K1 cell's weight gradient over an unroll, summed once: the steps'
+    inputs x and h (``take``, in the forward) and a stash of their gate
+    gradients, slot t for step t (``slot``, in each step's backward; zeros
+    where a step's backward never ran), which ``sum`` turns into dW_ih and
+    dW_hh. It holds no tensor with autograd history, so no reference cycle
+    runs through the graph."""
+
+    def __init__(self):
+        self.xs, self.hs = [], []
+        self.stash = None
+
+    def take(self, x, h) -> int:
+        """Note step t's operands -> t."""
+        if self.xs and x.shape != self.xs[0].shape:
+            raise ValueError(f"a K1 batch takes one shape a step: {tuple(x.shape)} after "
+                             f"{tuple(self.xs[0].shape)}")
+        self.xs.append(x.detach())
+        self.hs.append(h.detach())
+        return len(self.xs) - 1
+
+    def slot(self, t: int, dG_shape, dtype, device) -> torch.Tensor:
+        """Step t's (M, 3H) slot of the stash, made (zeros) at the first call."""
+        if self.stash is None:
+            self.stash = torch.zeros((len(self.xs), *dG_shape), dtype=dtype, device=device)
+        return self.stash[t]
+
+    def sum(self, needs) -> list:
+        """[X^T dG, H^T dG] over the stacked T*M rows, None where ``needs``
+        does not ask or no step's backward ran; the stash goes, so that a
+        second backward starts from zeros."""
+        if self.stash is None:
+            return [None, None]
+        dG = self.stash.flatten(0, 1)
+        self.stash = None
+        K1_DW.products += 1
+        return [_dw(torch.cat(rows), dG) if need else None
+                for rows, need in ((self.xs, needs[0]), (self.hs, needs[1]))]
+
+
+class DWSum(torch.autograd.Function):
+    """The node through which an unroll's K1 weights enter its loop: forward,
+    the weights themselves; backward, after every step's (each consumes
+    them, and hands back no weight gradient), the batch's one sum
+    (:meth:`DWBatch.sum`) in a ``pd.k1_backward`` span."""
+
+    @staticmethod
+    def forward(ctx, batch, w_ih, w_hh):
+        ctx.batch = batch
+        ctx.set_materialize_grads(False)
+        return w_ih, w_hh
+
+    @staticmethod
+    def backward(ctx, *grads):
+        with span("pd.k1_backward"):
+            return (None, *ctx.batch.sum(ctx.needs_input_grad[1:]))
+
+
+_UNROLL: contextvars.ContextVar = contextvars.ContextVar("k1_unroll", default=None)
+
+
+@contextlib.contextmanager
+def dw_batches():
+    """Open for an unroll's loop: each K1 cell stepped inside takes its
+    weights from ``step_weights`` once, with a :class:`DWBatch`."""
+    token = _UNROLL.set({})
+    try:
+        yield
+    finally:
+        _UNROLL.reset(token)
+
+
+def step_weights(key, x, masters, weights) -> tuple:
+    """(w_ih, w_hh, batch) for one step of the K1 cell ``key``, whose
+    ``weights()`` gives its gate weights in x's dtype and ``masters`` are the
+    parameters behind them. Inside ``dw_batches()``, on the bf16 route of a
+    device that launches K1, with a gradient asked of a master: the weights
+    read once an unroll, through :class:`DWSum`, and the cell's batch, the
+    same at every step. Otherwise ``weights()`` at each step, and None."""
+    unroll = _UNROLL.get()
+    if (unroll is None or x.device.type not in KERNEL_DEVICES
+            or backward_route(x.dtype) != "kernel" or not torch.is_grad_enabled()
+            or not any(p.requires_grad for p in masters)):
+        return (*weights(), None)
+    if key not in unroll:
+        batch = DWBatch()
+        unroll[key] = (*DWSum.apply(batch, *weights()), batch)
+    return unroll[key]
+
+
 class GRUDv2Function(torch.autograd.Function):
     """Forward = the K1 kernel; backward = :func:`k1_backward` for bf16
     operands, autograd through the plain version otherwise
-    (:func:`backward_route`)."""
+    (:func:`backward_route`). With a ``batch`` (:class:`DWBatch`) the step
+    writes its dG into its slot and returns no weight gradient: the batch's
+    :class:`DWSum` makes it."""
 
     @staticmethod
-    def forward(ctx, x, h, w_ih, w_hh, scale, bias):
+    def forward(ctx, x, h, w_ih, w_hh, scale, bias, batch=None):
         ctx.save_for_backward(x, h, w_ih, w_hh, scale, bias)
+        ctx.batch, ctx.slot = batch, None if batch is None else batch.take(x, h)
         return gru_dv2_cuda(x, h, w_ih, w_hh, scale, bias)
 
     @staticmethod
     def backward(ctx, grad_out):
         inputs = ctx.saved_tensors
-        needs = ctx.needs_input_grad
+        needs = ctx.needs_input_grad[:6]
         wanted = [i for i, need in enumerate(needs) if need]
-        grads = [None] * len(inputs)
+        grads = [None] * (len(inputs) + 1)
         if not wanted:
             return tuple(grads)
         route = backward_route(inputs[0].dtype)
         K1_BACKWARDS.add(grad_out.shape[0], route)
+        batch = ctx.batch
+        if needs[2] or needs[3]:
+            K1_DW.add("per_call" if batch is None else "batched")
         with span("pd.k1_backward"):
             if route == "kernel":
-                return tuple(k1_backward(*inputs, grad_out, needs))
+                if batch is None:
+                    return (*k1_backward(*inputs, grad_out, needs), None)
+                x, w_ih = inputs[0], inputs[2]
+                dG = batch.slot(ctx.slot, (x.shape[0], w_ih.shape[1]), x.dtype, x.device)
+                return (*k1_backward(*inputs, grad_out, (*needs[:2], False, False, *needs[4:]),
+                                     dG), None)
             with torch.enable_grad():
                 leaves = [t.detach().requires_grad_(i in wanted) for i, t in enumerate(inputs)]
                 out = gru_dv2_reference(*leaves)
@@ -471,13 +616,14 @@ class GRUDv2Function(torch.autograd.Function):
         return tuple(grads)
 
 
-def gru_dv2(x, h, w_ih, w_hh, scale, bias) -> torch.Tensor:
+def gru_dv2(x, h, w_ih, w_hh, scale, bias, batch=None) -> torch.Tensor:
     """Fused late-reset GRU step -> new hidden state (M, H) float32.
 
-    CPU tensors take the plain version; CUDA tensors always launch K1.
+    CPU tensors take the plain version; tensors of ``KERNEL_DEVICES`` (CUDA)
+    always launch K1, with ``batch`` (:func:`step_weights`) where given.
     """
+    if x.device.type in KERNEL_DEVICES:
+        return GRUDv2Function.apply(x, h, w_ih, w_hh, scale, bias, batch)
     if x.device.type == "cpu":
         return gru_dv2_reference(x, h, w_ih, w_hh, scale, bias)
-    if x.device.type == "cuda":
-        return GRUDv2Function.apply(x, h, w_ih, w_hh, scale, bias)
     raise ValueError(f"gru_dv2 has no path for device {x.device}")

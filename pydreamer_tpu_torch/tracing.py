@@ -23,8 +23,9 @@ trace readers take for the CUDA runtime's own calls):
   losses);
 * ``pd.backward``: the gradients zeroed in place, the loss sum and the one
   ``backward()`` (with the step copies' accumulations); inside it
-  ``pd.k1_backward``, ``GRUDv2Function.backward`` (K1's backward and its recompute),
-  which runs on autograd's device thread, and ``pd.k2_backward``,
+  ``pd.k1_backward``, ``GRUDv2Function.backward`` (K1's backward and its recompute)
+  and ``DWSum.backward`` (an unroll's one K1 weight gradient), which run on
+  autograd's device thread, and ``pd.k2_backward``,
   ``BlockGRUFunction.backward`` (K2's recompute and its gradients);
 * ``pd.optimizer``: the critic-target copies, the refresh of the step's
   weight copies before the forward, the norms, the clip and ``AdamW.step``
@@ -45,8 +46,8 @@ the steps ``TrainStep`` captured into CUDA graphs, and ``graph_replays``, its
 calls served by replaying them. The adds of the model's code run only while a
 step runs eagerly or is captured: a replay credits what its capture counted,
 in every counter field registered with ``TALLIES`` (``COUNTERS``' three
-weight counters here, K1's ``LAUNCHES`` in ``ops/gru_dv2.py``, K2's
-``K2_LAUNCHES`` in ``ops/block_gru.py``). A counter
+weight counters here, K1's ``LAUNCHES``, ``K1_BACKWARDS`` and ``K1_DW`` in
+``ops/gru_dv2.py``, K2's ``K2_LAUNCHES`` in ``ops/block_gru.py``). A counter
 that the model's code adds to registers its fields there, or a replayed
 step leaves it short.
 """

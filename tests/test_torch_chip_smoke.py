@@ -13,10 +13,11 @@ import chip_smoke
 ROOT = Path(__file__).resolve().parent.parent
 
 # The phases each flag runs: as the per-flag branches of main() ran them
-# before the table replaced them, phase 21's flag, and K2's phases 22-23.
+# before the table replaced them, phase 21's flag, K2's phases 22-23 and phase 24
+# (K1's dW summed once over the posterior loop).
 FLAG_PHASES = {"--learning-only": [1, 15], "--tools-only": [1, 2, 16], "--graph-only": [1, 17],
                "--dv3-only": [1, 18, 19], "--backward-only": [1, 20], "--copies-only": [1, 21],
-               "--k2-only": [1, 22, 23]}
+               "--k2-only": [1, 22, 23], "--dw-only": [1, 24]}
 
 
 @pytest.mark.parametrize("name, preset", [("atari_dv2", "flagship_conf"), ("dmc_dv2", "dmc_conf"),
@@ -46,8 +47,8 @@ def test_each_flag_runs_the_phases_its_usage_names(flag):
 
 def test_no_flag_runs_every_phase_once_in_order():
     rows = chip_smoke.plan([])
-    assert [n for n, _, _ in rows] == list(range(1, 24))
-    assert len({fn for _, fn, _ in rows}) == 23
+    assert [n for n, _, _ in rows] == list(range(1, 25))
+    assert len({fn for _, fn, _ in rows}) == 24
     assert all(opts == {} for _, _, opts in rows)
 
 

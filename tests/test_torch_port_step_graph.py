@@ -17,12 +17,12 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from pydreamer_tpu_torch import tracing
-from pydreamer_tpu_torch.models import modules, rnn
+from pydreamer_tpu_torch.models import modules
 from pydreamer_tpu_torch.models.dreamer import Dreamer
 from pydreamer_tpu_torch.models.noise import GeneratorNoise
 from pydreamer_tpu_torch.ops import gru_dv2
 from pydreamer_tpu_torch.ops.accumulate import ACCUMULATES
-from pydreamer_tpu_torch.ops.gru_dv2 import K1_BACKWARDS, LAUNCHES
+from pydreamer_tpu_torch.ops.gru_dv2 import K1_BACKWARDS, K1_DW, LAUNCHES
 from pydreamer_tpu_torch.scripts.flagship import make_batch, make_conf
 from pydreamer_tpu_torch.tracing import COUNTERS, NULL, span
 from pydreamer_tpu_torch.training import train_step
@@ -78,7 +78,7 @@ def _stepper(k1=False, monkeypatch=None, **overrides):
             LAUNCHES.add(x.shape[0], "skinny" if x.shape[0] == conf.batch_size else "wide")
             return gru_dv2.gru_dv2_reference(x, h, *rest)
         monkeypatch.setattr(gru_dv2, "gru_dv2_cuda", launch)
-        monkeypatch.setattr(rnn, "gru_dv2", gru_dv2.GRUDv2Function.apply)
+        monkeypatch.setattr(gru_dv2, "KERNEL_DEVICES", ("cpu",))
 
         def accumulate(acc, g):  # the accumulate kernel's count, torch's add_ for its sums
             ACCUMULATES.add(acc.numel())
@@ -250,13 +250,15 @@ def test_each_replay_credits_what_the_captured_step_counted(monkeypatch):
         COUNTERS.reset()
         LAUNCHES.reset()
         K1_BACKWARDS.reset()
+        K1_DW.reset()
         ACCUMULATES.reset()
         state[0], *_ = ts(obs, state[0], step, seed=4)
         per_call.append((COUNTERS.weight_casts, COUNTERS.weight_copies,
                          COUNTERS.weight_copy_uses, LAUNCHES.count, dict(LAUNCHES.by_rows),
                          dict(LAUNCHES.by_schedule), COUNTERS.graph_replays,
                          COUNTERS.graph_captures, COUNTERS.train_steps))
-        backwards.append((dict(K1_BACKWARDS.by_route), dict(K1_BACKWARDS.by_rows)))
+        backwards.append((dict(K1_BACKWARDS.by_route), dict(K1_BACKWARDS.by_rows),
+                          dict(K1_DW.by_path), K1_DW.products))
         accumulates.append((ACCUMULATES.count, dict(ACCUMULATES.by_numel)))
     T, B, H = conf.batch_length, conf.batch_size, conf.imag_horizon
     eager = per_call[0]
@@ -268,14 +270,18 @@ def test_each_replay_credits_what_the_captured_step_counted(monkeypatch):
     assert per_call[1][:6] == eager[:6] and per_call[1][6:] == (1, 1, 1)   # capture + replay
     for replay in per_call[2:]:
         assert replay[:6] == eager[:6] and replay[6:] == (1, 0, 1)
-    # K1's backward: the posterior loop's T calls, the bf16 pass, in every call.
-    assert backwards == [({"kernel": T}, {B: T})] * 5
+    # K1's backward: the posterior loop's T calls, the bf16 pass, in every call,
+    # each a slot of the loop's one dW sum.
+    assert backwards == [({"kernel": T}, {B: T}, {"batched": T}, 1)] * 5
     delta = ts.graphs.captured[ts.signature(obs, state[0])].delta
     assert {name: change for c, name, change in delta if c in (COUNTERS, LAUNCHES)} == dict(
         zip(("weight_casts", "weight_copies", "weight_copy_uses", "count", "by_rows",
              "by_schedule"), eager[:6]))
-    assert {name: change for c, name, change in delta if c is K1_BACKWARDS} == dict(
-        zip(("by_route", "by_rows"), backwards[0]))
+    assert {name: change for c, name, change in delta if c in (K1_BACKWARDS, K1_DW)} == dict(
+        zip(("by_route", "by_rows", "by_path", "products"), backwards[0]))
+    # The capture cuts at each step's backward and at the loop's one dW sum.
+    (captured,) = ts.graphs.captured.values()
+    assert sum(tags[-1:] == ("pd.k1_backward",) for tags, _ in captured.segments) == T + 1
     assert {name: change for c, name, change in delta if c is ACCUMULATES} == dict(
         zip(("count", "by_numel"), accumulates[0]))
 
